@@ -1,0 +1,153 @@
+"""K1: pairwise squared-distance (Gram) partial over coordinate chunks.
+
+Counterpart of ``repro/kernels/pairwise_gram.py``.  Replaces the Pallas
+kernel ``_gram_kernel`` (``pairwise_gram.py:46``) reached through
+``pairwise_gram_partial``; the CUDA source is
+``repro_torch/csrc/pairwise_gram.cu`` (split-K over d, fp32 FFMA, a
+fixed-order reduce of the per-chunk partials, so runs repeat bit for
+bit).  It is bounded by reading the ``(n, d)`` stack once; at n = 39 the
+``2 n^2 d`` fp32 operations come close to that bound too.
+
+``pairwise_gram_partial`` dispatches on the tensor's device: a CPU
+tensor takes :func:`pairwise_gram_partial_plain`, which repeats the
+reference's per-tile arithmetic; a CUDA tensor launches the kernel or
+raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["finalize_dists", "pairwise_gram", "pairwise_gram_partial",
+           "pairwise_gram_partial_plain"]
+
+#: the kernels pad n to a thread tile and keep (n, n) in shared memory
+MAX_N = 64
+#: coordinates per shared-memory tile of the kernel
+_TILE_K = 32
+#: CTAs the split-K grid aims at (two waves of an H100's 132 SMs)
+_TARGET_CHUNKS = 264
+
+
+def finalize_dists(raw: torch.Tensor) -> torch.Tensor:
+    """Turn summed raw partials into a valid distance matrix.
+
+    Args:
+      raw: ``(n, n)`` sum of :func:`pairwise_gram_partial` outputs.
+
+    Returns:
+      ``(n, n)`` with fp-cancellation negatives clamped to zero and the
+      diagonal zeroed.
+    """
+    n = raw.shape[0]
+    out = torch.clamp_min(raw, 0.0)
+    return out * (1.0 - torch.eye(n, dtype=out.dtype, device=out.device))
+
+
+def pairwise_gram_partial_plain(slab: torch.Tensor, *,
+                                block_d: int = 4096) -> torch.Tensor:
+    """Plain PyTorch version of K1, tile by tile as the reference.
+
+    Args:
+      slab: ``(n, *dims)`` worker-stacked coordinates, fp32 or bf16.
+      block_d: tile width along the flattened coordinate axis.
+
+    Returns:
+      ``(n, n)`` float32 raw partial ``sum over tiles of (sq_i + sq_j -
+      2 <x_i, x_j>)``, neither clamped nor with a zeroed diagonal.
+    """
+    n = slab.shape[0]
+    x = slab.reshape(n, -1)
+    d = x.shape[1]
+    block_d = min(block_d, max(d, 128))
+    out = None
+    for k0 in range(0, d, block_d):
+        blk = x[:, k0:k0 + block_d].to(torch.float32)
+        sq = torch.sum(blk * blk, dim=1)
+        part = sq[:, None] + sq[None, :] - 2.0 * (blk @ blk.T)
+        out = part if out is None else out + part
+    return out
+
+
+def _check_stack(x: torch.Tensor, what: str) -> None:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what} takes float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous (n, d) stack")
+    if not 1 <= x.shape[0] <= MAX_N:
+        raise ValueError(f"{what}: n <= {MAX_N} (got n={x.shape[0]})")
+
+
+def _chunking(d: int):
+    """(chunk, n_chunks): contiguous coordinate chunks, one per CTA."""
+    tiles = math.ceil(d / _TILE_K)
+    per = math.ceil(tiles / min(tiles, _TARGET_CHUNKS))
+    chunk = per * _TILE_K
+    return chunk, math.ceil(d / chunk)
+
+
+def _plain_block_d(x: torch.Tensor, block_d: Optional[int], what: str):
+    """Keyword arguments for a plain version; a CUDA call takes none,
+    because the kernel picks its own chunking."""
+    if block_d is None:
+        return {}
+    if x.device.type != "cpu":
+        raise ValueError(f"{what}: block_d sets the plain version's tiles; "
+                         f"the kernel picks its own chunking")
+    return {"block_d": block_d}
+
+
+def pairwise_gram_partial(slab: torch.Tensor, *,
+                          block_d: Optional[int] = None) -> torch.Tensor:
+    """Raw distance partial of one coordinate slab (the accumulable form).
+
+    Args:
+      slab: ``(n, *dims)`` worker-stacked coordinates, fp32 or bf16,
+        n <= 64; trailing dims are flattened.
+      block_d: tile width of the plain version, for a CPU tensor only
+        (``None``: its default); a CUDA tensor with a ``block_d`` raises.
+
+    Returns:
+      ``(n, n)`` float32 raw partial (see
+      :func:`pairwise_gram_partial_plain`).  A CPU tensor takes the plain
+      version; a CUDA tensor launches the kernel or raises.
+    """
+    n = slab.shape[0]
+    x = slab.reshape(n, -1)
+    kw = _plain_block_d(x, block_d, "pairwise_gram_partial")
+    if x.device.type == "cpu":
+        return pairwise_gram_partial_plain(x, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_stack(x, "pairwise_gram_partial")
+    d = x.shape[1]
+    chunk, n_chunks = _chunking(d)
+    partials = torch.empty((n_chunks, n, n), dtype=torch.float32,
+                           device=x.device)
+    raw = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    lib = _build.library("pairwise_gram")
+    fn = (lib.gram_partial_f32 if x.dtype == torch.float32
+          else lib.gram_partial_bf16)
+    _build.check(fn(x.data_ptr(), n, d, chunk, n_chunks,
+                    partials.data_ptr(), raw.data_ptr(), _build.stream_of(x)),
+                 "pairwise_gram_partial")
+    _build.count("pairwise_gram_partial")
+    return raw
+
+
+def pairwise_gram(grads: torch.Tensor, *, block_d: Optional[int] = None
+                  ) -> torch.Tensor:
+    """Pairwise squared euclidean distances of worker rows.
+
+    Args:
+      grads: ``(n, d)`` worker rows, fp32 or bf16.
+      block_d: tile width of the plain version, for a CPU tensor only.
+
+    Returns:
+      ``(n, n)`` float32 distances, non-negative, zero diagonal.
+    """
+    return finalize_dists(pairwise_gram_partial(grads, block_d=block_d))
