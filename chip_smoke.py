@@ -17,8 +17,13 @@ Phases, in order; any failure exits nonzero before the last line:
    n = 39, f = 9 with d = 79,510 and 486,346 (the paper's two models),
    plus edges d in {1, 129, 4097} and n in {7, 38, 64}, fp32 (tolerance
    1e-4 relative) and bf16 (5e-2).  Selections must be exactly equal, and
-   K5 must equal K1 + select + K4 bit for bit.  Times per call of each
-   kernel, its plain version and one PyTorch call as a yardstick.
+   K5 must equal K1 + select + K4 bit for bit.  K2 (``bulyan_select``) at
+   theta = 21, f = 9 and K3 (``coord_stats``) at n = 39, f = 9 at both
+   widths, plus d in {1, 129, 4097}, theta in {3, 64}, n in {3, 38, 64}
+   and a NaN-bearing column; for K2 in bf16 a coordinate may instead be
+   any window mean that is optimal under a tie.  Times per call of each
+   kernel, its plain version and one PyTorch call as a yardstick
+   (``torch.sort``, "sort only", for K2 and K3).
 3. The main path: ``ByzantineTrainer`` in the paper's Fig. 4 setting (30
    honest + 9 Byzantine workers, ``omniscient_linf`` with the closed-form
    gamma, "anti" direction, margin 0.8, SGD with ``fading_lr(0.3, 1e4)``,
@@ -26,17 +31,37 @@ Phases, in order; any failure exits nonzero before the last line:
    MNIST MLP and 5 on the CIFAR CNN, at their published widths, from
    seeded random weights.  Launch counters are reset just before each
    model's run and read just after; every step must launch K1, select
-   and K4 once each, and K5's count is the sum of those three.  Step 0's aggregate must match the plain path at 1e-4.
+   and K4 once each (K2 and K3 not at all), and K5's count is the sum
+   of those three.  Step 0's aggregate must match the plain path at
+   1e-4.
    Final eval accuracy of clean ``average``, attacked ``fused-krum`` and
    attacked ``fused-bulyan-krum`` on the MLP, for a reader.
-4. One JSON line of per-kernel measurements, then the result line
+4. The tree engine at full width: the Fig. 4 submissions of both models
+   as per-leaf trees (30 ``vmap(grad)`` gradients, then the port's
+   ``inject_byzantine`` with ``omniscient_linf``), aggregated by
+   ``distributed_aggregate`` (through ``AggSpec.aggregate_tree``) with 8
+   rules under the ``xla``, ``pallas`` and ``fused`` backends.  Each
+   result must match the dense rule on ``stack_flatten`` of the same
+   tree at 1e-4 of its largest entry, with equal ``selected``,
+   and each aggregation must launch exactly the kernels its backend
+   implies (launch counters reset just before it and read just after).
+   Then the kernel-pair route (K1, phase 1 in PyTorch, K2) against
+   ``fused-bulyan-krum``, and K3 against the engine's cwmed and
+   trimmed_mean, counted the same way.  ms per aggregation per backend.
+5. The fp32-accumulation contract on the card: the three probes in bf16
+   at d in {512, 1536} and both model widths, each <= 1e-4, and a bf16
+   tree through ``"auto"`` and ``"fused"`` within 1e-2 of the flat fp32
+   rule with its leaf dtypes kept.
+6. One JSON line of per-kernel measurements, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -65,13 +90,23 @@ REPLACES = {
     "select_weights": "src/repro/kernels/fused_agg.py:164",
     "fused_coordinate": "src/repro/kernels/fused_agg.py:380",
     "fused_aggregate": "src/repro/kernels/fused_agg.py:271",
+    "bulyan_select": "src/repro/kernels/bulyan_select.py:41",
+    "coord_stats": "src/repro/kernels/coord_stats.py:29",
 }
 SOURCES = {
     "pairwise_gram_partial": "src/repro_torch/csrc/pairwise_gram.cu",
     "select_weights": "src/repro_torch/csrc/fused_agg.cu",
     "fused_coordinate": "src/repro_torch/csrc/fused_agg.cu",
     "fused_aggregate": "src/repro_torch/csrc/fused_agg.cu",
+    "bulyan_select": "src/repro_torch/csrc/bulyan_select.cu",
+    "coord_stats": "src/repro_torch/csrc/coord_stats.cu",
 }
+#: the kernels of PR 11's training path (phase 3)
+TRAIN_KERNELS = ("pairwise_gram_partial", "select_weights",
+                 "fused_coordinate", "fused_aggregate")
+#: the rules the tree engine runs (phase 4)
+TREE_RULES = ("bulyan-krum", "bulyan-geomed", "krum", "multikrum",
+              "geomed", "cwmed", "trimmed_mean", "average")
 
 
 class CheckFailed(Exception):
@@ -91,6 +126,16 @@ def rel_err(got, want) -> tuple:
         return 0.0, 0.0
     err = float((got - want).abs().max())
     return err, err / max(1.0, float(want.abs().max()))
+
+
+def scaled_err(got, want) -> tuple:
+    """(max abs error, max abs error over max |want|, max |want|): a
+    relative error that stays relative on small gradients."""
+    got = got.double()
+    want = want.double()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    return err, err / scale if scale > 0 else err, scale
 
 
 def smi_line() -> str:
@@ -137,27 +182,32 @@ class Timer:
 
 
 def bound(n: int, d: int, f: int, kernel: str, elem: int) -> dict:
-    """Least time the card could take for one kernel in ``bulyan-krum``
-    mode: the larger of the bytes the function must move over the memory
-    rate and its fp32 operations over the fp32 peak.
+    """Least time the card could take for one kernel at the main path's
+    shapes (``bulyan-krum`` mode for the fused kernels): the larger of
+    the bytes the function must move over the memory rate and its fp32
+    operations over the fp32 peak.
 
     Bytes: each input read once, each output written once.  Bulyan-krum's
     weights are one-hot, so the combine is a gather of the theta = n - 2f
     picked rows, and K4 needs only those.  K5 reads the whole stack for
     the Gram and then the picked rows again: the selection needs every
     row's distances before the combine can start, so that second read
-    comes from HBM when the stack exceeds the L2 cache.
+    comes from HBM when the stack exceeds the L2 cache.  K2 reads the
+    (theta, d) picked stack and writes d floats; K3 reads the (n, d)
+    stack and writes two d-float outputs.
 
     Operations: the Gram's symmetric half and diagonal, n (n + 1) d (a
-    multiply-add counts 2); the selection's theta rounds of column sorts;
-    per coordinate, the sort of theta values (theta (theta - 1) / 2
-    compare-exchanges) and the window's 4 theta adds.  The gather does
-    no arithmetic.
+    multiply-add counts 2); a sort of m values, m (m - 1) (a
+    compare-exchange is a min and a max); the selection's theta rounds
+    of n column sorts and neighbour sums; per coordinate, the sort of
+    theta values and the window's 4 theta adds (K4 and K2), or the sort
+    of n values, the trimmed sum's n - 2f adds and the median's 2
+    operations (K3).  The gather does no arithmetic.
     """
     theta = n - 2 * f
     stack, picked = n * d * elem, theta * d * elem
-    sel_ops = theta * n * (n * (n - 1) // 2 + n)
-    window_ops = d * (theta * (theta - 1) // 2 + 4 * theta)
+    sel_ops = theta * n * (n * (n - 1) + n)
+    window_ops = d * (theta * (theta - 1) + 4 * theta)
     gram_ops = n * (n + 1) * d
     if kernel == "pairwise_gram_partial":
         nbytes, ops = stack + n * n * 4, gram_ops
@@ -165,6 +215,11 @@ def bound(n: int, d: int, f: int, kernel: str, elem: int) -> dict:
         nbytes, ops = n * n * 4 + (theta * n + 2 * n) * 4, sel_ops
     elif kernel == "fused_coordinate":
         nbytes, ops = picked + theta * n * 4 + d * 4, window_ops
+    elif kernel == "bulyan_select":
+        nbytes, ops = picked + d * 4, window_ops
+    elif kernel == "coord_stats":
+        nbytes = stack + 2 * d * 4
+        ops = d * (n * (n - 1) + (n - 2 * f) + 2)
     else:
         reread = picked if stack > L2_BYTES else 0
         nbytes = stack + reread + d * 4 + 2 * n * 4
@@ -288,13 +343,138 @@ def time_kernels(torch, ops, d, timer):
     return out
 
 
+def coord_stack(torch, rows, d, dtype, seed, nan_col=None):
+    """Unit-normal rows (coordinate-kernel inputs), one NaN if asked."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((rows, d), generator=g)
+    if nan_col is not None:
+        x[rows // 2, nan_col] = float("nan")
+    return x.to(device="cuda", dtype=dtype).contiguous()
+
+
+def compare_nan(torch, got, want, tol, what):
+    """(max abs error, mask of coordinates outside tol) after checking
+    that NaNs sit in the same places."""
+    expect(torch.equal(torch.isnan(got), torch.isnan(want)),
+           f"{what}: NaN pattern differs")
+    got, want = torch.nan_to_num(got), torch.nan_to_num(want)
+    err = (got.double() - want.double()).abs()
+    scale = max(1.0, float(want.double().abs().max()))
+    return err, err > tol * scale
+
+
+def tie_optimal(torch, x, f, got):
+    """Coordinates where ``got`` is the mean of a window whose deviation
+    from the median is optimal under a tie (bf16 ties; the paper's arg min
+    is a set), as tests/test_kernels.py accepts."""
+    theta = x.shape[0]
+    beta = theta - 2 * f
+    sv = torch.sort(x.float(), dim=0).values
+    med = sv[(theta - 1) // 2]
+    wins = range(theta - beta + 1)
+    devs = torch.stack([(sv[w:w + beta] - med).abs().sum(0) for w in wins])
+    means = torch.stack([sv[w:w + beta].mean(0) for w in wins])
+    best = devs.min(0).values
+    tie = devs <= best * (1 + 1e-2) + 1e-2
+    close = (got[None] - means).abs() <= 1e-2 + 1e-3 * means.abs()
+    return (tie & close).any(0)
+
+
+def check_k2(torch, bs, theta, f, d, dtype, seed, worst, nan_col=None):
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    tag = f"K2 theta={theta} f={f} d={d} {str(dtype).split('.')[-1]}"
+    x = coord_stack(torch, theta, d, dtype, seed, nan_col)
+    got = bs.bulyan_select(x, f)
+    want = bs.bulyan_select_plain(x, f)
+    torch.cuda.synchronize()
+    err, bad = compare_nan(torch, got, want, tol, tag)
+    if dtype == torch.bfloat16 and bool(bad.any()):
+        excused = bad & tie_optimal(torch, x, f, torch.nan_to_num(got))
+        bad &= ~excused
+        err = torch.where(excused, torch.zeros_like(err), err)
+    expect(not bool(bad.any()), f"{tag}: {int(bad.sum())} coordinates "
+           f"off the plain version by more than {tol} relative")
+    worst["bulyan_select"] = max(worst.get("bulyan_select", 0.0),
+                                 float(err.max()))
+
+
+def check_k3(torch, cs, n, f, d, dtype, seed, worst, nan_col=None):
+    tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    tag = f"K3 n={n} f={f} d={d} {str(dtype).split('.')[-1]}"
+    x = coord_stack(torch, n, d, dtype, seed, nan_col)
+    med, trim = cs.coord_stats(x, f)
+    medp, trimp = cs.coord_stats_plain(x, f)
+    torch.cuda.synchronize()
+    for what, got, want in (("median", med, medp),
+                            ("trimmed mean", trim, trimp)):
+        err, bad = compare_nan(torch, got, want, tol, f"{tag} {what}")
+        expect(not bool(bad.any()), f"{tag} {what}: {int(bad.sum())} "
+               f"coordinates off the plain version by more than {tol}")
+        worst["coord_stats"] = max(worst.get("coord_stats", 0.0),
+                                   float(err.max()))
+
+
+def phase_coord_kernels(torch, ops, worst):
+    """K2 and K3 against their plain versions (phase 2's second half)."""
+    bs, cs = ops["bulyan_select"], ops["coord_stats"]
+    theta = N_MAIN - 2 * F_MAIN
+    widths = (D_MLP, D_CNN, 1, 129, 4097)
+    k2 = [(theta, F_MAIN, d) for d in widths] + [(3, 1, 4097),
+                                                   (64, 15, 4097)]
+    k3 = [(N_MAIN, F_MAIN, d) for d in widths] + [(3, 1, 4097),
+                                                    (38, 9, 4097),
+                                                    (64, 15, 4097)]
+    seed = 1000
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for rows, f, d in k2:
+            seed += 1
+            check_k2(torch, bs, rows, f, d, dtype, seed, worst)
+            print(f"  ok  K2 theta={rows:2d} f={f:2d} d={d:7d} {name}",
+                  flush=True)
+        for rows, f, d in k3:
+            seed += 1
+            check_k3(torch, cs, rows, f, d, dtype, seed, worst)
+            print(f"  ok  K3 n={rows:2d} f={f:2d} d={d:7d} {name}",
+                  flush=True)
+    check_k2(torch, bs, theta, F_MAIN, 4097, torch.float32, 7, worst,
+             nan_col=7)
+    check_k3(torch, cs, N_MAIN, F_MAIN, 4097, torch.float32, 8, worst,
+             nan_col=7)
+    print("  ok  K2 and K3 with a NaN-bearing column", flush=True)
+
+
+def time_coord_kernels(torch, ops, d, timer):
+    """Per-call ms of K2 and K3, their plain versions and ``torch.sort``
+    (sort only), at the main path's shapes (theta = 21 picked rows for
+    K2, n = 39 for K3, f = 9, fp32)."""
+    bs, cs = ops["bulyan_select"], ops["coord_stats"]
+    xs = make_stack(torch, N_MAIN - 2 * F_MAIN, d, 0, torch.float32, 98)
+    xc = make_stack(torch, N_MAIN, d, F_MAIN, torch.float32, 97)
+    table = {
+        "bulyan_select": (lambda: bs.bulyan_select(xs, F_MAIN),
+                          lambda: bs.bulyan_select_plain(xs, F_MAIN),
+                          lambda: torch.sort(xs, dim=0)),
+        "coord_stats": (lambda: cs.coord_stats(xc, F_MAIN),
+                        lambda: cs.coord_stats_plain(xc, F_MAIN),
+                        lambda: torch.sort(xc, dim=0)),
+    }
+    out = {}
+    for name, (kern, plain, lib) in table.items():
+        out[name] = {"ms": timer.ms(kern, 20),
+                     "plain_ms": timer.ms(plain, 3, warmup=1),
+                     "library_ms": timer.ms(lib, 20)}
+        out[name].update(bound(N_MAIN, d, F_MAIN, name, 4))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def run_model(torch, rt, kind, steps, runs):
-    simple, tr, fa = rt["simple"], rt["trainer"], rt["fused_agg"]
-    build = rt["build"]
+def model_and_loss(rt, kind):
+    """A paper model's seeded parameters and its training loss."""
+    simple = rt["simple"]
     if kind == "mnist":
         params = simple.init_mnist_mlp(seed=1, device="cuda")
         fwd = simple.mnist_mlp_forward
@@ -304,6 +484,13 @@ def run_model(torch, rt, kind, steps, runs):
 
     def loss(p, x, y):
         return simple.classification_loss(fwd(p, x), y, p)
+
+    return params, loss
+
+
+def run_model(torch, rt, kind, steps, runs):
+    tr, fa, build = rt["trainer"], rt["fused_agg"], rt["build"]
+    params, loss = model_and_loss(rt, kind)
 
     spec = rt["AggSpec"](n_workers=N_MAIN, f=F_MAIN,
                          gar="fused-bulyan-krum", attack="omniscient_linf",
@@ -352,8 +539,10 @@ def run_model(torch, rt, kind, steps, runs):
         expect(math.isfinite(h["loss"]), f"{kind} loss not finite")
     counts = dict(build.LAUNCHES)
     for name in REPLACES:
-        # K5 counts the K1, select and K4 launches it made
-        want = 3 * steps if name == "fused_aggregate" else steps
+        # K5 counts the K1, select and K4 launches it made; K2 and K3 are
+        # not on the training path
+        want = (3 * steps if name == "fused_aggregate"
+                else steps if name in TRAIN_KERNELS else 0)
         expect(counts[name] == want,
                f"{kind}: {name} launched {counts[name]} times in {steps} "
                f"steps, expected {want}")
@@ -381,6 +570,10 @@ def run_model(torch, rt, kind, steps, runs):
 #: the port's kernels as the profiler names them
 PORT_KERNELS = ("gram_partial_kernel", "gram_reduce_kernel", "select_kernel",
                 "combine_kernel")
+#: the port's profiler spans (``repro_torch.obs.trace.named_span``): the
+#: profiler lists each with the device time of the kernels under it, so
+#: they are not kernels of their own
+SPANS = ("agg/coordinate", "agg/gram", "agg/select", "kernel/fused")
 
 
 def profile_steps(torch, trainer, batcher, start: int, steps: int) -> dict:
@@ -400,7 +593,7 @@ def profile_steps(torch, trainer, batcher, start: int, steps: int) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for ev in prof.key_averages():
-        if not str(ev.device_type).endswith("CUDA"):
+        if not str(ev.device_type).endswith("CUDA") or ev.key in SPANS:
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -448,6 +641,215 @@ def mlp_accuracies(torch, rt, bulyan_trainer):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: the tree engine
+# ---------------------------------------------------------------------------
+
+def tree_submissions(torch, rt, kind):
+    """The Fig. 4 submissions of one model as a per-leaf tree: the 30
+    honest ``vmap(grad)`` gradients, not flattened, then 9
+    ``omniscient_linf`` rows from the port's ``inject_byzantine``."""
+    params, loss = model_and_loss(rt, kind)
+    n_h = N_MAIN - F_MAIN
+    x, y = rt["ByzantineBatcher"](kind, n_h, 16, seed=1,
+                                  noise=0.5).batch(0)
+    x = torch.as_tensor(x, device="cuda")
+    y = torch.as_tensor(y, device="cuda").long()
+    honest = torch.func.vmap(torch.func.grad(loss),
+                             in_dims=(None, 0, 0))(params, x, y)
+    padded = {k: torch.cat([g, torch.zeros_like(g[:F_MAIN])])
+              for k, g in honest.items()}
+    return rt["inject_byzantine"](padded, F_MAIN, "omniscient_linf",
+                                  **dict(LINF))
+
+
+def expected_launches(build, backend: str, gar: str, n_leaves: int):
+    """The launches one ``distributed_aggregate`` call implies."""
+    want = dict.fromkeys(build.LAUNCHES, 0)
+    if gar == "average" or backend == "xla":
+        return want        # no distances, or no kernel at all
+    dist = gar not in ("cwmed", "trimmed_mean")
+    if backend == "pallas":
+        want["pairwise_gram_partial"] = n_leaves if dist else 0
+        return want
+    want["fused_coordinate"] = n_leaves
+    if dist:
+        want["pairwise_gram_partial"] = n_leaves
+        want["select_weights"] = 1
+    if n_leaves == 1:      # one leaf goes to K5, which counts its parts
+        want["fused_aggregate"] = 3 if dist else 1
+    return want
+
+
+def counted(torch, build, fn):
+    """Run ``fn`` with every launch counter reset just before it; return
+    its result and the counters read just after."""
+    torch.cuda.synchronize()
+    build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(build.LAUNCHES)
+
+
+def expect_launches(counts, want, what):
+    expect(counts == want, f"{what}: launches {counts}, expected {want}")
+
+
+def median_ms(torch, fn, reps: int = 20) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` (after 2 warm-up
+    calls; the host's work inside ``fn`` shows as device idle time)."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def flat_of(torch, rt, tree):
+    return torch.cat([leaf.reshape(-1).float()
+                      for leaf in rt["tree_leaves"](tree)])
+
+
+def phase_tree(torch, rt, kind):
+    """The tree engine on one model's Fig. 4 tree (see the docstring)."""
+    build, da = rt["build"], rt["distributed_aggregate"]
+    tree = tree_submissions(torch, rt, kind)
+    n_leaves = len(tree)
+    flat, _ = rt["stack_flatten"](tree)
+    dense = {gar: rt["resolve_rule"](gar).dense_fn(flat, F_MAIN)
+             for gar in TREE_RULES}
+    print(f"  {kind} gradient scale: max |g| over the tree "
+          f"{float(flat.abs().max()):.3e}, rms "
+          f"{float(flat.pow(2).mean().sqrt()):.3e}", flush=True)
+    results = {}
+    for backend in ("xla", "pallas", "fused"):
+        worst_rel, smallest = 0.0, float("inf")
+        for gar in TREE_RULES:
+            what = f"{kind} tree {backend} {gar}"
+            # through the spec, as a distributed trainer sets the backend
+            spec = rt["AggSpec"](f=F_MAIN, gar=gar,
+                                 distance_backend=backend)
+            (agg, res), counts = counted(
+                torch, build, lambda: spec.aggregate_tree(tree))
+            expect_launches(counts, expected_launches(
+                build, backend, gar, n_leaves), what)
+            got = flat_of(torch, rt, agg)
+            err, rel, scale = scaled_err(got, dense[gar].gradient)
+            expect(rel <= FP32_TOL, f"{what} vs flat: rel err {rel:.3e} "
+                   f"(max |want| {scale:.3e})")
+            expect(torch.equal(res.selected, dense[gar].selected),
+                   f"{what}: selected differs from the flat rule")
+            results[(backend, gar)] = got
+            worst_rel, smallest = max(worst_rel, rel), min(smallest, scale)
+        print(f"  ok  {kind} ({n_leaves} leaves, d={flat.shape[1]}) "
+              f"{backend}: {len(TREE_RULES)} rules match the flat rule "
+              f"(worst err / max |want| {worst_rel:.3e}, smallest max "
+              f"|want| {smallest:.3e}), launches as expected", flush=True)
+    for gar in ("bulyan-krum", "cwmed"):
+        what = f"{kind} single-leaf fused {gar}"
+        (agg, res), counts = counted(torch, build, lambda: da(
+            {"flat": flat}, F_MAIN, gar, distance_backend="fused"))
+        expect_launches(counts, expected_launches(build, "fused", gar, 1),
+                        what)
+        err, rel, scale = scaled_err(agg["flat"], dense[gar].gradient)
+        expect(rel <= FP32_TOL, f"{what} vs flat: rel err {rel:.3e} "
+               f"(max |want| {scale:.3e})")
+        expect(torch.equal(res.selected, dense[gar].selected),
+               f"{what}: selected differs")
+    print(f"  ok  {kind} single-leaf fused: K5 = K1 + select + K4",
+          flush=True)
+
+    # the kernel-pair route (K1, phase 1 in PyTorch, gather, K2) and K3,
+    # counted from 0
+    ops = rt["ops"]
+
+    def pair_route():
+        d2 = ops.pairwise_distances(flat)
+        idx = rt["select_indices_from_dists"](d2, F_MAIN, "krum")
+        agg = ops.bulyan_coordinate(flat[idx].contiguous(), F_MAIN)
+        return idx, agg, rt["coord_stats"](flat, F_MAIN)
+
+    (idx, pair, (med, trim)), path = counted(torch, build, pair_route)
+    want = dict.fromkeys(build.LAUNCHES, 0)
+    want.update(pairwise_gram_partial=1, bulyan_select=1, coord_stats=1)
+    expect_launches(path, want, f"{kind} kernel-pair route and K3")
+    sel = torch.zeros_like(dense["bulyan-krum"].selected)
+    sel[idx] = 1.0
+    expect(torch.equal(sel, dense["bulyan-krum"].selected),
+           f"{kind} kernel-pair route picked other workers")
+    for what, got, ref in (
+            ("K1 + K2 vs fused-bulyan-krum", pair,
+             results[("fused", "bulyan-krum")]),
+            ("K3 median vs tree cwmed", med, results[("xla", "cwmed")]),
+            ("K3 trimmed mean vs tree trimmed_mean", trim,
+             results[("xla", "trimmed_mean")])):
+        err, rel, scale = scaled_err(got, ref)
+        expect(rel <= FP32_TOL, f"{kind} {what}: rel err {rel:.3e} "
+               f"(max |want| {scale:.3e})")
+        print(f"  ok  {kind} {what}: max abs err {err:.3e}, over max "
+              f"|want| {scale:.3e}: {rel:.3e}", flush=True)
+
+    agg_ms = {}
+    for gar in ("bulyan-krum", "cwmed"):
+        for backend in ("xla", "pallas", "fused"):
+            agg_ms[(gar, backend)] = median_ms(torch, lambda: da(
+                tree, F_MAIN, gar, distance_backend=backend))
+            print(f"  {kind} {gar:12s} {backend:6s} "
+                  f"{agg_ms[(gar, backend)]:.3f} ms per aggregation "
+                  f"(median of 20)", flush=True)
+    return {"launches": path, "agg_ms": agg_ms, "n_leaves": n_leaves}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the fp32-accumulation contract
+# ---------------------------------------------------------------------------
+
+def phase_fp32(torch, rt):
+    """The reference audit's fp32 section (``audit/sweep.py``) on the
+    card: bf16 inputs, fp32 accumulation."""
+    probes = rt["probes"]
+    for d in (512, 1536, D_MLP, D_CNN):
+        errs = {
+            "gram": probes.gram_fp32_contract_error(n=8, d=d),
+            "coord": probes.coord_fp32_contract_error(theta=9, f=2, d=d),
+        }
+        for mode in ("bulyan-krum", "trimmed_mean"):
+            errs[f"fused {mode}"] = probes.fused_fp32_contract_error(
+                n=11, f=2, d=d, mode=mode)
+        for name, err in errs.items():
+            expect(err <= FP32_TOL, f"probe {name} bf16 d={d}: rel err "
+                   f"{err:.3e} > {FP32_TOL}")
+        print(f"  ok  probes bf16 d={d}: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n, f = 11, 2
+    tree = {"w": torch.randn((n, 24, 8), generator=g, device="cuda"),
+            "b": torch.randn((n, 40), generator=g, device="cuda")}
+    tree = {k: v.to(torch.bfloat16) for k, v in tree.items()}
+    flat, _ = rt["stack_flatten"](tree)
+    for gar in ("krum", "cwmed", "bulyan-krum"):
+        want = rt["resolve_rule"](gar).dense_fn(flat, f).gradient
+        for backend in ("auto", "fused"):
+            agg, _ = rt["distributed_aggregate"](tree, f, gar,
+                                                 distance_backend=backend)
+            for k, leaf in agg.items():
+                expect(leaf.dtype == torch.bfloat16,
+                       f"{gar}[{backend}]: leaf {k} came back {leaf.dtype}")
+            err, rel = rel_err(flat_of(torch, rt, agg), want)
+            expect(rel <= 1e-2, f"{gar}[{backend}]: bf16 tree deviates "
+                   f"from the flat fp32 rule by rel {rel:.3e}")
+            print(f"  ok  bf16 tree {gar}[{backend}]: rel err {rel:.2e}, "
+                  f"leaf dtypes kept", flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -467,18 +869,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.agg.registry import resolve_rule
     from repro_torch.agg.specs import AggSpec
-    from repro_torch.core.pytree import unflatten
+    from repro_torch.core.bulyan import select_indices_from_dists
+    from repro_torch.core.pytree import (stack_flatten, tree_leaves,
+                                         unflatten)
     from repro_torch.data.synthetic import ByzantineBatcher, mnist_like
-    from repro_torch.kernels import _build, fused_agg, pairwise_gram
+    from repro_torch.dist.robust import (distributed_aggregate,
+                                         inject_byzantine)
+    from repro_torch.kernels import _build, ops as kernel_ops, probes
+    # the package exports functions under the names of these modules, as
+    # the reference's does, so the modules come from the import system
+    bulyan_select, coord_stats, fused_agg, pairwise_gram = (
+        importlib.import_module(f"repro_torch.kernels.{name}")
+        for name in ("bulyan_select", "coord_stats", "fused_agg",
+                     "pairwise_gram"))
     from repro_torch.models import simple
     from repro_torch.optim import fading_lr, get_optimizer
     from repro_torch.training import trainer
     rt = dict(simple=simple, trainer=trainer, fused_agg=fused_agg,
               build=_build, AggSpec=AggSpec, unflatten=unflatten,
               ByzantineBatcher=ByzantineBatcher, mnist_like=mnist_like,
-              fading_lr=fading_lr, get_optimizer=get_optimizer)
-    ops = {"fused_agg": fused_agg, "pairwise_gram": pairwise_gram}
+              fading_lr=fading_lr, get_optimizer=get_optimizer,
+              resolve_rule=resolve_rule, stack_flatten=stack_flatten,
+              tree_leaves=tree_leaves,
+              distributed_aggregate=distributed_aggregate,
+              inject_byzantine=inject_byzantine, ops=kernel_ops,
+              select_indices_from_dists=select_indices_from_dists,
+              coord_stats=coord_stats.coord_stats, probes=probes)
+    ops = {"fused_agg": fused_agg, "pairwise_gram": pairwise_gram,
+           "bulyan_select": bulyan_select, "coord_stats": coord_stats}
 
     print("== phase 1: build", flush=True)
     secs = _build.build_all()
@@ -490,9 +910,12 @@ def main() -> int:
 
     print("== phase 2: kernels vs plain versions", flush=True)
     worst = phase_kernels(torch, ops)
+    phase_coord_kernels(torch, ops, worst)
     timer = Timer(torch)
-    timings = {"mlp": time_kernels(torch, ops, D_MLP, timer),
-               "cnn": time_kernels(torch, ops, D_CNN, timer)}
+    timings = {}
+    for model, d in (("mlp", D_MLP), ("cnn", D_CNN)):
+        timings[model] = time_kernels(torch, ops, d, timer)
+        timings[model].update(time_coord_kernels(torch, ops, d, timer))
     for model, rows in timings.items():
         for name, r in rows.items():
             lib = ("-" if r["library_ms"] is None
@@ -510,13 +933,27 @@ def main() -> int:
     for label, acc in accs.items():
         print(f"  MLP eval accuracy after 40 steps, {label}: {acc:.4f}")
 
+    print("== phase 4: the tree engine (Fig. 4 trees, 3 backends)",
+          flush=True)
+    tree_runs = {kind: phase_tree(torch, rt, kind)
+                 for kind in ("mnist", "cifar")}
+
+    print("== phase 5: fp32-accumulation contract (bf16 inputs)",
+          flush=True)
+    phase_fp32(torch, rt)
+
     kernels = []
     for model, kind in (("mlp", "mnist"), ("cnn", "cifar")):
         for name, r in timings[model].items():
+            # K2 and K3 run on the tree phase's kernel-pair route
+            path = runs if name in TRAIN_KERNELS else tree_runs
+            launches = path[kind]["launches"][name]
+            expect(launches > 0, f"{name} was not launched on its path "
+                   f"({model})")
             kernels.append({
                 "name": f"{name}@{model}", "route": "cuda",
                 "source": SOURCES[name], "replaces": REPLACES[name],
-                "launches": runs[kind]["launches"][name],
+                "launches": launches,
                 "max_abs_err": worst[name], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -13,21 +13,43 @@ from typing import Any, List, Tuple
 
 import torch
 
-__all__ = ["stack_flatten", "tree_leaves", "unflatten"]
+__all__ = ["stack_flatten", "tree_leaves", "tree_unflatten", "unflatten"]
 
 
 def tree_leaves(tree: Any) -> List[torch.Tensor]:
     """Leaves of a parameter dict in sorted-key order (JAX's tree order).
 
     Args:
-      tree: a tensor or a dict of tensors.
+      tree: a tensor, a dict of tensors or a list / tuple of tensors.
 
     Returns:
-      The leaf tensors, keys sorted.
+      The leaf tensors: keys sorted for a dict, in order for a sequence.
     """
     if isinstance(tree, dict):
         return [tree[k] for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return list(tree)
     return [tree]
+
+
+def tree_unflatten(tree: Any, leaves: List[torch.Tensor]) -> Any:
+    """New leaves in the structure of ``tree`` (inverse of
+    :func:`tree_leaves`).
+
+    Args:
+      tree: the tensor, dict or list / tuple the leaves came from.
+      leaves: replacement leaves in :func:`tree_leaves` order.
+
+    Returns:
+      A tree of the same kind: a dict with ``tree``'s keys, a list /
+      tuple, or the single leaf.
+    """
+    if isinstance(tree, dict):
+        by_key = dict(zip(sorted(tree), leaves))
+        return {k: by_key[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(leaves)
+    return leaves[0]
 
 
 def stack_flatten(stacked_tree: Any) -> Tuple[torch.Tensor, Any]:

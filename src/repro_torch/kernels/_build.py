@@ -33,7 +33,7 @@ __all__ = ["LAUNCHES", "build_all", "check", "count", "library",
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = (pathlib.Path(__file__).resolve().parents[3] / "build"
           / "repro_torch_kernels")
-_SOURCES = ("pairwise_gram", "fused_agg")
+_SOURCES = ("pairwise_gram", "fused_agg", "bulyan_select", "coord_stats")
 _ARCH = "arch=compute_90a,code=sm_90a"
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -48,12 +48,21 @@ _SIGNATURES = {
         "combine_f32": [_VP, _I, _LL, _VP, _I, _I, _I, _VP, _VP],
         "combine_bf16": [_VP, _I, _LL, _VP, _I, _I, _I, _VP, _VP],
     },
+    "bulyan_select": {
+        "bulyan_select_f32": [_VP, _I, _LL, _I, _VP, _VP],
+        "bulyan_select_bf16": [_VP, _I, _LL, _I, _VP, _VP],
+    },
+    "coord_stats": {
+        "coord_stats_f32": [_VP, _I, _LL, _I, _VP, _VP, _VP],
+        "coord_stats_bf16": [_VP, _I, _LL, _I, _VP, _VP, _VP],
+    },
 }
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"pairwise_gram_partial": 0,
                             "select_weights": 0, "fused_coordinate": 0,
-                            "fused_aggregate": 0}
+                            "fused_aggregate": 0, "bulyan_select": 0,
+                            "coord_stats": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -114,7 +123,7 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of one source, building it if needed.
 
     Args:
-      name: source stem, ``"pairwise_gram"`` or ``"fused_agg"``.
+      name: source stem, one of ``_SOURCES``.
 
     Returns:
       The ``ctypes.CDLL`` with ``argtypes`` / ``restype`` declared.

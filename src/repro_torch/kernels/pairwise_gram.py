@@ -16,14 +16,15 @@ raises.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
+from repro_torch.core.pytree import tree_leaves
 from repro_torch.kernels import _build
 
 __all__ = ["finalize_dists", "pairwise_gram", "pairwise_gram_partial",
-           "pairwise_gram_partial_plain"]
+           "pairwise_gram_partial_plain", "pairwise_gram_tree"]
 
 #: the kernels pad n to a thread tile and keep (n, n) in shared memory
 MAX_N = 64
@@ -151,3 +152,29 @@ def pairwise_gram(grads: torch.Tensor, *, block_d: Optional[int] = None
       ``(n, n)`` float32 distances, non-negative, zero diagonal.
     """
     return finalize_dists(pairwise_gram_partial(grads, block_d=block_d))
+
+
+def pairwise_gram_tree(tree: Any, *, block_d: Optional[int] = None
+                       ) -> torch.Tensor:
+    """Distances over the concatenation of all leaves of a gradient tree.
+
+    Args:
+      tree: a dict (or list) of ``(n, *dims)`` leaves with a shared
+        leading worker axis, in the reference's leaf order (sorted keys);
+        trailing dims may differ across leaves.
+      block_d: tile width of the plain version, for CPU leaves only.
+
+    Returns:
+      ``(n, n)`` float32 squared distances over the concatenated
+      coordinate space: one :func:`pairwise_gram_partial` per leaf (one
+      K1 launch each on the card), summed in leaf order, finalized once;
+      no flat ``(n, d)`` matrix is built.
+    """
+    leaves = tree_leaves(tree)
+    if not leaves:
+        raise ValueError("empty gradient tree")
+    n = leaves[0].shape[0]
+    raw = torch.zeros((n, n), dtype=torch.float32, device=leaves[0].device)
+    for leaf in leaves:
+        raw = raw + pairwise_gram_partial(leaf, block_d=block_d)
+    return finalize_dists(raw)
