@@ -15,15 +15,21 @@ Phases, in order; any failure exits nonzero before the last line:
    (``pairwise_gram_partial``), the selection kernel, K4
    (``fused_coordinate``) and K5 (``fused_aggregate``) in all 7 modes, at
    n = 39, f = 9 with d = 79,510 and 486,346 (the paper's two models),
-   plus edges d in {1, 129, 4097} and n in {7, 38, 64}, fp32 (tolerance
-   1e-4 relative) and bf16 (5e-2).  Selections must be exactly equal, and
-   K5 must equal K1 + select + K4 bit for bit.  K2 (``bulyan_select``) at
-   theta = 21, f = 9 and K3 (``coord_stats``) at n = 39, f = 9 at both
+   plus edges d in {1, 2, 3, 129, 4097} and n in {7, 38, 64}, fp32
+   (tolerance 1e-4 relative) and bf16 (5e-2).  K1's output must equal its
+   transpose and a second call bit for bit.  Selections (weights,
+   selected and scores) must be exactly equal, with NaN in the same
+   places, and K5 must equal K1 + select + K4 bit for bit.  The selection
+   also runs at n in {3, 4, 7, 38, 64} with the largest f each mode's
+   quorum allows, and a stack with one NaN coordinate goes through the
+   selection in all five distance modes and through K5.  K2
+   (``bulyan_select``) at theta = 21, f = 9 and K3 (``coord_stats``) at n = 39, f = 9 at both
    widths, plus d in {1, 129, 4097}, theta in {3, 64}, n in {3, 38, 64}
    and a NaN-bearing column; for K2 in bf16 a coordinate may instead be
    any window mean that is optimal under a tie.  Times per call of each
    kernel, its plain version and one PyTorch call as a yardstick
-   (``torch.sort``, "sort only", for K2 and K3).
+   (``torch.mm(x, x.T)``, "Gram only", for K1; ``torch.sort``, "sort
+   only", for K2 and K3), with CUDA events.
 3. The main path: ``ByzantineTrainer`` in the paper's Fig. 4 setting (30
    honest + 9 Byzantine workers, ``omniscient_linf`` with the closed-form
    gamma, "anti" direction, margin 0.8, SGD with ``fading_lr(0.3, 1e4)``,
@@ -52,7 +58,11 @@ Phases, in order; any failure exits nonzero before the last line:
    at d in {512, 1536} and both model widths, each <= 1e-4, and a bf16
    tree through ``"auto"`` and ``"fused"`` within 1e-2 of the flat fp32
    rule with its leaf dtypes kept.
-6. One JSON line of per-kernel measurements, then the result line
+6. The device time of each timed kernel and yardstick, from
+   ``torch.profiler`` over launches timed as in phase 2, and the
+   selection's event and device time in each of its five modes.  It comes last
+   because a profiler session leaves later launches slower on the host.
+7. One JSON line of per-kernel measurements, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -180,6 +190,32 @@ class Timer:
             total += start.elapsed_time(end)
         return total / reps
 
+    def device_ms(self, fn, reps: int) -> float:
+        """Device time per call of ``fn``'s own kernels (torch.profiler,
+        the flush's fill kernel left out), over ``reps`` calls timed as
+        :meth:`ms` times them.  A profile that recorded no device time is
+        taken once more; 0.0 if that one is empty too."""
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            us = 0.0
+            for ev in prof.key_averages():
+                if "FillFunctor" in ev.key:
+                    continue
+                t = getattr(ev, "self_device_time_total", None)
+                us += t if t is not None else getattr(
+                    ev, "self_cuda_time_total", 0.0)
+            if us > 0:
+                break
+        return us / 1e3 / reps
+
 
 def bound(n: int, d: int, f: int, kernel: str, elem: int) -> dict:
     """Least time the card could take for one kernel at the main path's
@@ -198,15 +234,18 @@ def bound(n: int, d: int, f: int, kernel: str, elem: int) -> dict:
 
     Operations: the Gram's symmetric half and diagonal, n (n + 1) d (a
     multiply-add counts 2); a sort of m values, m (m - 1) (a
-    compare-exchange is a min and a max); the selection's theta rounds
-    of n column sorts and neighbour sums; per coordinate, the sort of
+    compare-exchange is a min and a max); the selection's one sort of
+    each column's n - 1 off-diagonal entries and, in each of its theta
+    rounds, every column's k = max(1, n - t - f - 2) neighbour sums (the
+    distances do not change between rounds); per coordinate, the sort of
     theta values and the window's 4 theta adds (K4 and K2), or the sort
     of n values, the trimmed sum's n - 2f adds and the median's 2
     operations (K3).  The gather does no arithmetic.
     """
     theta = n - 2 * f
     stack, picked = n * d * elem, theta * d * elem
-    sel_ops = theta * n * (n * (n - 1) + n)
+    sel_ops = n * (n - 1) * (n - 2) + sum(
+        n * max(1, n - t - f - 2) for t in range(theta))
     window_ops = d * (theta * (theta - 1) + 4 * theta)
     gram_ops = n * (n + 1) * d
     if kernel == "pairwise_gram_partial":
@@ -257,17 +296,15 @@ def check_case(torch, ops, n, f, d, dtype, seed, worst):
     raw_plain = pg.pairwise_gram_partial_plain(x)
     err, rel = rel_err(raw, raw_plain)
     expect(rel <= tol, f"K1 {tag}: rel err {rel:.3e} > {tol}")
+    expect(torch.equal(raw, raw.T), f"K1 {tag}: not exactly symmetric")
+    expect(torch.equal(raw, pg.pairwise_gram_partial(x)),
+           f"K1 {tag}: a second call differs")
     note("pairwise_gram_partial", err)
     for mode in fa.FUSED_MODES:
         mtag = f"{mode} {tag}"
         if mode in fa.DIST_MODES:
-            w, sel, sc = fa.select_weights(raw, n, f, mode)
-            wp, selp, scp = fa.select_weights_plain(raw, n, f, mode)
-            expect(torch.equal(w, wp), f"select weights differ: {mtag}")
-            expect(torch.equal(sel, selp), f"select selected differ: {mtag}")
-            err, rel = rel_err(sc, scp)
-            expect(rel <= FP32_TOL, f"select scores {mtag}: {rel:.3e}")
-            note("select_weights", err)
+            wp = check_select(torch, fa, raw, n, f, mode, mtag)
+            note("select_weights", 0.0)
         else:
             wp = None
         got = fa.fused_coordinate(x, wp, f, mode=mode)
@@ -295,9 +332,67 @@ def check_case(torch, ops, n, f, d, dtype, seed, worst):
     torch.cuda.synchronize()
 
 
+def same_nan(torch, got, want) -> bool:
+    """Equal values with NaN in the same places."""
+    return (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)))
+
+
+def check_select(torch, fa, raw, n, f, mode, tag):
+    """The selection kernel against its plain version: weights, selected
+    and scores exactly equal, NaN in the same places.  Returns the plain
+    weights."""
+    got = fa.select_weights(raw, n, f, mode)
+    want = fa.select_weights_plain(raw, n, f, mode)
+    for what, g, w in zip(("weights", "selected", "scores"), got, want):
+        expect(same_nan(torch, g, w), f"select {what} differ: {tag}")
+    return want[0]
+
+
+def max_f(n: int, mode: str) -> int:
+    """The largest f the mode's quorum allows (``_check_mode_shape``)."""
+    if mode.startswith("bulyan"):
+        return (n - 3) // 4
+    if mode in ("krum", "multikrum"):
+        return n - 3
+    return n - 1
+
+
+def phase_select_edges(torch, ops):
+    """The selection at the quorum edges, and a stack with one NaN
+    coordinate through the selection and K5."""
+    fa, pg = ops["fused_agg"], ops["pairwise_gram"]
+    for n in (3, 4, 7, 38, 64):
+        for mode in fa.DIST_MODES:
+            f = max_f(n, mode)
+            x = make_stack(torch, n, 257, min(f, n - 1), torch.float32, n)
+            check_select(torch, fa, pg.pairwise_gram_partial(x), n, f, mode,
+                         f"{mode} n={n} f={f}")
+        print(f"  ok  select n={n:2d} at each mode's largest f", flush=True)
+    n, f = N_MAIN, F_MAIN
+    x = make_stack(torch, n, 4097, f, torch.float32, 77)
+    x[n - 1, 7] = float("nan")
+    raw = pg.pairwise_gram_partial(x)
+    for mode in fa.FUSED_MODES:
+        tag = f"{mode} NaN-bearing stack"
+        if mode in fa.DIST_MODES:
+            check_select(torch, fa, raw, n, f, mode, tag)
+        agg, sel, sc = fa.fused_aggregate(x, f, mode=mode)
+        aggp, selp, scp = fa.fused_aggregate_plain(x, f, mode=mode)
+        expect(torch.equal(sel, selp) and same_nan(torch, sc, scp),
+               f"K5 selected / scores differ: {tag}")
+        expect(torch.equal(torch.isnan(agg), torch.isnan(aggp)),
+               f"K5 NaN pattern differs: {tag}")
+        ok = ~torch.isnan(aggp)
+        err, rel = rel_err(agg[ok], aggp[ok])
+        expect(rel <= FP32_TOL, f"K5 {tag}: rel err {rel:.3e}")
+    print("  ok  a NaN-bearing stack through the selection (5 modes) and "
+          "K5 (7 modes)", flush=True)
+
+
 def phase_kernels(torch, ops):
     cases = [(N_MAIN, F_MAIN, D_MLP), (N_MAIN, F_MAIN, D_CNN)]
-    cases += [(N_MAIN, F_MAIN, d) for d in (1, 129, 4097)]
+    cases += [(N_MAIN, F_MAIN, d) for d in (1, 2, 3, 129, 4097)]
     cases += [(7, 1, 4097), (38, 8, 4097), (64, 15, 4097)]
     worst = {}
     seed = 0
@@ -333,14 +428,54 @@ def time_kernels(torch, ops, d, timer):
             lambda: fa.fused_aggregate(x, f, mode=mode),
             lambda: fa.fused_aggregate_plain(x, f, mode=mode), None),
     }
+    return timed(timer, table, n, d, f)
+
+
+def timed(timer, table, n, d, f) -> dict:
+    """Event ms per call of each kernel, its plain version and its
+    yardstick, beside the kernel's bound.  The kernel and the yardstick
+    are kept under "calls" for :func:`device_times`."""
     out = {}
     for name, (kern, plain, lib) in table.items():
         out[name] = {"ms": timer.ms(kern, 20),
                      "plain_ms": timer.ms(plain, 3, warmup=1),
                      "library_ms": None if lib is None else timer.ms(lib,
-                                                                     20)}
+                                                                     20),
+                     "calls": (kern, lib)}
         out[name].update(bound(n, d, f, name, 4))
     return out
+
+
+def time_select_modes(torch, ops, timer) -> None:
+    """Event and device ms per call of the selection in each distance
+    mode at n = 39, f = 9 (the selection does not depend on d)."""
+    fa, pg = ops["fused_agg"], ops["pairwise_gram"]
+    raw = pg.pairwise_gram_partial(make_stack(torch, N_MAIN, 4097, F_MAIN,
+                                              torch.float32, 96))
+    for mode in fa.DIST_MODES:
+        fn = (lambda m: lambda: fa.select_weights(raw, N_MAIN, F_MAIN,
+                                                  m))(mode)
+        print(f"  select {mode:13s} event {timer.ms(fn, 20) * 1e3:7.1f} us  "
+              f"device {timer.device_ms(fn, 20) * 1e3:7.1f} us", flush=True)
+
+
+def device_times(timer, timings) -> None:
+    """The profiler's device ms per call of each timed kernel and
+    yardstick (phase 6).  It runs last: once a profiler session has run,
+    later launches in the process pay for its tracing on the host, which
+    would slow the step and aggregation times of phases 3 and 4."""
+    for model, rows in timings.items():
+        for name, r in rows.items():
+            kern, lib = r.pop("calls")
+            r["device_ms"] = timer.device_ms(kern, 20)
+            r["library_device_ms"] = (None if lib is None
+                                      else timer.device_ms(lib, 20))
+            lib_ms = ("-" if lib is None else
+                      f"{r['library_device_ms'] * 1e3:.1f}")
+            print(f"  {model} {name:22s} device {r['device_ms'] * 1e3:8.1f} "
+                  f"us (event {r['ms'] * 1e3:.1f})  library device "
+                  f"{lib_ms} us  bound {r['bound_ms'] * 1e3:.2f} us",
+                  flush=True)
 
 
 def coord_stack(torch, rows, d, dtype, seed, nan_col=None):
@@ -459,13 +594,7 @@ def time_coord_kernels(torch, ops, d, timer):
                         lambda: cs.coord_stats_plain(xc, F_MAIN),
                         lambda: torch.sort(xc, dim=0)),
     }
-    out = {}
-    for name, (kern, plain, lib) in table.items():
-        out[name] = {"ms": timer.ms(kern, 20),
-                     "plain_ms": timer.ms(plain, 3, warmup=1),
-                     "library_ms": timer.ms(lib, 20)}
-        out[name].update(bound(N_MAIN, d, F_MAIN, name, 4))
-    return out
+    return timed(timer, table, N_MAIN, d, F_MAIN)
 
 
 # ---------------------------------------------------------------------------
@@ -568,8 +697,7 @@ def run_model(torch, rt, kind, steps, runs):
 
 
 #: the port's kernels as the profiler names them
-PORT_KERNELS = ("gram_partial_kernel", "gram_reduce_kernel", "select_kernel",
-                "combine_kernel")
+PORT_KERNELS = ("gram_kernel", "select_kernel", "combine_kernel")
 #: the port's profiler spans (``repro_torch.obs.trace.named_span``): the
 #: profiler lists each with the device time of the kernels under it, so
 #: they are not kernels of their own
@@ -851,6 +979,21 @@ def phase_fp32(torch, rt):
 
 # ---------------------------------------------------------------------------
 
+def print_ptxas(log: pathlib.Path) -> None:
+    """One line per kernel of an ``-Xptxas -v`` build log: its (mangled)
+    name, registers, shared memory and spill bytes."""
+    name, spill = None, ""
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.split(":")[-1].strip()
+        elif "registers" in line and name:
+            print(f"  {log.stem}: {name}: {line.split(':', 1)[1].strip()}; "
+                  f"{spill}")
+            name = None
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -904,12 +1047,11 @@ def main() -> int:
     secs = _build.build_all()
     print(f"  built the CUDA kernels in {secs:.1f} s", flush=True)
     for log in sorted((_build._BUILD).glob("*.log")):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {log.stem}: {line.strip()}")
+        print_ptxas(log)
 
     print("== phase 2: kernels vs plain versions", flush=True)
     worst = phase_kernels(torch, ops)
+    phase_select_edges(torch, ops)
     phase_coord_kernels(torch, ops, worst)
     timer = Timer(torch)
     timings = {}
@@ -921,9 +1063,9 @@ def main() -> int:
             lib = ("-" if r["library_ms"] is None
                    else f"{r['library_ms'] * 1e3:.1f}")
             print(f"  {model} {name:22s} kernel {r['ms'] * 1e3:9.1f} us  "
-                  f"plain {r['plain_ms'] * 1e3:10.1f} us  library "
-                  f"{lib} us  bound {r['bound_ms'] * 1e3:.1f} us "
-                  f"({r['bound_by']})", flush=True)
+                  f"plain {r['plain_ms'] * 1e3:10.1f} us  library {lib} us  "
+                  f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})",
+                  flush=True)
 
     print("== phase 3: main path (Fig. 4, fused-bulyan-krum)", flush=True)
     runs = {}
@@ -941,6 +1083,10 @@ def main() -> int:
     print("== phase 5: fp32-accumulation contract (bf16 inputs)",
           flush=True)
     phase_fp32(torch, rt)
+
+    print("== phase 6: device times (torch.profiler)", flush=True)
+    device_times(timer, timings)
+    time_select_modes(torch, ops, timer)
 
     kernels = []
     for model, kind in (("mlp", "mnist"), ("cnn", "cifar")):

@@ -182,12 +182,12 @@ def geomed(grads: torch.Tensor, f: int = 0) -> AggResult:
 
 def _median0(grads: torch.Tensor) -> torch.Tensor:
     """``jnp.median(axis=0)``: the mean of the two middle values for even
-    n (``torch.median`` would return the lower one)."""
+    n (``torch.median`` would return the lower one), and NaN for every
+    column that holds a NaN (``torch.sort`` would put it last)."""
     n = grads.shape[0]
     s = torch.sort(grads, dim=0).values
-    if n % 2:
-        return s[n // 2]
-    return 0.5 * (s[n // 2 - 1] + s[n // 2])
+    med = s[n // 2] if n % 2 else 0.5 * (s[n // 2 - 1] + s[n // 2])
+    return torch.where(torch.isnan(grads).any(dim=0), float("nan"), med)
 
 
 @register_rule("cwmed", min_n=lambda f: 2 * f + 1,

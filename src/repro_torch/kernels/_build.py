@@ -40,8 +40,10 @@ _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry points per library: name -> argtypes (all return int)
 _SIGNATURES = {
     "pairwise_gram": {
-        "gram_partial_f32": [_VP, _I, _LL, _LL, _I, _VP, _VP, _VP],
-        "gram_partial_bf16": [_VP, _I, _LL, _LL, _I, _VP, _VP, _VP],
+        "gram_partial_f32": [_VP, _I, _LL, _LL, _I, _VP, _VP, _VP, _VP,
+                             _VP],
+        "gram_partial_bf16": [_VP, _I, _LL, _LL, _I, _VP, _VP, _VP, _VP,
+                              _VP],
     },
     "fused_agg": {
         "select_weights_f32": [_VP, _I, _I, _I, _VP, _VP, _VP, _VP],

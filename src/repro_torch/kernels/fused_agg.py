@@ -64,6 +64,7 @@ _MODE_IDS = {"krum": 0, "geomed": 1, "multikrum": 2, "bulyan-krum": 3,
 _K5_PARTS = ("pairwise_gram_partial", "select_weights", "fused_coordinate")
 
 _INF = float("inf")
+_NAN = float("nan")
 
 
 def _weight_rows(n: int, f: int, mode: str) -> int:
@@ -118,20 +119,30 @@ def _masked_dists(d2: torch.Tensor, avail: torch.Tensor) -> torch.Tensor:
 
 def _krum_scores(dm, avail, f, n_rem):
     """Per worker, the sum of the k = max(1, n_rem - f - 2) smallest
-    remaining distances, smallest first (the reference sorts the columns
-    with its odd-even network; the sorted values are the same)."""
+    remaining distances, smallest first.
+
+    The reference sorts the columns with its odd-even network, whose
+    NaN-propagating min / max spread one NaN to every position of its
+    column; ``torch.sort`` puts NaN last instead.  The two agree on
+    columns without NaN, so a column holding a NaN (masked entries are
+    +inf, never NaN) scores NaN here, as it does in the reference."""
     k = max(1, n_rem - f - 2)
     cols = torch.sort(dm, dim=0).values
     s = cols[0:1]
     for r in range(1, k):
         s = s + cols[r:r + 1]
+    s = torch.where(torch.isnan(dm).any(dim=0, keepdim=True), _NAN, s)
     return torch.where(avail > 0.5, s, _INF)
 
 
 def _geomed_scores(dm, avail):
     """Per worker, the sum of non-squared distances to the remaining
-    workers, accumulated in row order as the kernel does."""
-    dist = torch.sqrt(torch.where(torch.isinf(dm), 0.0, dm))
+    workers, accumulated in row order as the kernel does.  The square
+    root is taken in float64 and rounded once to float32: the correctly
+    rounded root that CUDA's ``sqrtf`` gives, on every device (PyTorch's
+    vectorized float32 root on the CPU is off by an ulp on some
+    inputs)."""
+    dist = torch.sqrt(torch.where(torch.isinf(dm), 0.0, dm).double()).float()
     s = torch.zeros_like(avail)
     for i in range(dm.shape[0]):
         s = s + dist[i:i + 1]

@@ -3,10 +3,12 @@
 Counterpart of ``repro/kernels/pairwise_gram.py``.  Replaces the Pallas
 kernel ``_gram_kernel`` (``pairwise_gram.py:46``) reached through
 ``pairwise_gram_partial``; the CUDA source is
-``repro_torch/csrc/pairwise_gram.cu`` (split-K over d, fp32 FFMA, a
-fixed-order reduce of the per-chunk partials, so runs repeat bit for
-bit).  It is bounded by reading the ``(n, d)`` stack once; at n = 39 the
-``2 n^2 d`` fp32 operations come close to that bound too.
+``repro_torch/csrc/pairwise_gram.cu`` (split-K over d, the symmetric
+half of the Gram in 8 x 8 register blocks of fp32 FFMA, a cp.async ring
+of tiles, and the per-chunk partials reduced in the same launch in a
+fixed order, so runs repeat bit for bit and the result is exactly
+symmetric).  It is bounded by reading the ``(n, d)`` stack once; at
+n = 39 the ``n (n + 1) d`` fp32 operations take about half as long.
 
 ``pairwise_gram_partial`` dispatches on the tensor's device: a CPU
 tensor takes :func:`pairwise_gram_partial_plain`, which repeats the
@@ -29,9 +31,14 @@ __all__ = ["finalize_dists", "pairwise_gram", "pairwise_gram_partial",
 #: the kernels pad n to a thread tile and keep (n, n) in shared memory
 MAX_N = 64
 #: coordinates per shared-memory tile of the kernel
-_TILE_K = 32
-#: CTAs the split-K grid aims at (two waves of an H100's 132 SMs)
+_TILE_K = 64
+#: CTAs the split-K grid aims at (two per SM of an H100's 132); fixed
+#: here, not read from the card, so a result does not depend on the card
 _TARGET_CHUNKS = 264
+#: chunks per first-level reduce of the kernel (``kGroup`` in the source)
+_GROUP = 16
+#: (device, stream) -> the kernel's reduce counters, zero between launches
+_COUNTERS = {}
 
 
 def finalize_dists(raw: torch.Tensor) -> torch.Tensor:
@@ -127,14 +134,24 @@ def pairwise_gram_partial(slab: torch.Tensor, *,
     _check_stack(x, "pairwise_gram_partial")
     d = x.shape[1]
     chunk, n_chunks = _chunking(d)
-    partials = torch.empty((n_chunks, n, n), dtype=torch.float32,
+    n_groups = math.ceil(n_chunks / _GROUP)
+    tri = n * (n + 1) // 2                  # packed upper triangle
+    partials = torch.empty((n_chunks, tri), dtype=torch.float32,
                            device=x.device)
+    group_sums = torch.empty((n_groups, tri), dtype=torch.float32,
+                             device=x.device)
     raw = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    stream = _build.stream_of(x)
+    key = (x.device, stream)
+    if key not in _COUNTERS:
+        # n_groups + 1 <= 18 counters; the kernel leaves them at zero
+        _COUNTERS[key] = torch.zeros(32, dtype=torch.int32, device=x.device)
     lib = _build.library("pairwise_gram")
     fn = (lib.gram_partial_f32 if x.dtype == torch.float32
           else lib.gram_partial_bf16)
     _build.check(fn(x.data_ptr(), n, d, chunk, n_chunks,
-                    partials.data_ptr(), raw.data_ptr(), _build.stream_of(x)),
+                    partials.data_ptr(), group_sums.data_ptr(),
+                    _COUNTERS[key].data_ptr(), raw.data_ptr(), stream),
                  "pairwise_gram_partial")
     _build.count("pairwise_gram_partial")
     return raw

@@ -58,6 +58,109 @@ def test_every_kernel_matches_plain(card, n, f, d, dtype, tol):
             assert torch.equal(w, wp) and torch.equal(sel, selp), mode
 
 
+def _max_f(n, mode):
+    """The largest f the mode's quorum allows (``_check_mode_shape``)."""
+    if mode.startswith("bulyan"):
+        return (n - 3) // 4
+    if mode in ("krum", "multikrum"):
+        return n - 3
+    return n - 1
+
+
+def _same(got, want):
+    """Equal values with NaN in the same places."""
+    return torch.equal(torch.isnan(got), torch.isnan(want)) and torch.equal(
+        torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("d", [1, 2, 3, 129, 4097, 79_510])
+def test_gram_is_exactly_symmetric_and_repeats(card, d, dtype, tol):
+    for n in (1, 2, 7, 8, 9, 39, 40, 41, 63, 64):
+        x = _stack(n, d, dtype, card, seed=n + d)
+        raw = pairwise_gram_partial(x)
+        assert torch.equal(raw, raw.T), (n, d)
+        assert torch.equal(raw, pairwise_gram_partial(x)), (n, d)
+        assert _rel(raw, _gram64(x)) <= tol, (n, d)
+
+
+def _gram64(x):
+    """The raw distances in float64 (the plain version's per-tile fp32
+    cancellation leaves up to ~5e-4 on a zero diagonal at d = 79,510)."""
+    x = x.double()
+    sq = (x * x).sum(dim=1)
+    return sq[:, None] + sq[None, :] - 2.0 * (x @ x.T)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_every_n_and_unaligned_rows(card, dtype):
+    """Every n from 1 to 64, and stacks whose base is not 16-byte
+    aligned (a contiguous view one row into a bigger stack)."""
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for n in range(1, 65):
+        x = _stack(n, 131, dtype, card, seed=n)
+        assert _rel(pairwise_gram_partial(x),
+                    pairwise_gram_partial_plain(x)) <= tol, n
+    for d in (5, 6, 130, 4098):
+        big = _stack(40, d, dtype, card, seed=d)
+        x = big[1:]                       # offset d elements
+        assert x.is_contiguous()
+        raw = pairwise_gram_partial(x)
+        assert torch.equal(raw, raw.T)
+        assert _rel(raw, pairwise_gram_partial_plain(x)) <= tol, d
+
+
+def test_identical_rows_are_at_distance_zero(card):
+    x = _stack(39, 79_510, torch.float32, card, seed=5)
+    x[30:] = x[:30].mean(dim=0)
+    raw = pairwise_gram_partial(x)
+    assert bool((raw[30:, 30:] == 0).all())
+
+
+@pytest.mark.parametrize("mode", fa.DIST_MODES)
+@pytest.mark.parametrize("n", [3, 4, 7, 38, 39, 64])
+def test_select_matches_plain_at_the_largest_f(card, n, mode):
+    f = _max_f(n, mode) if n != 39 else 9
+    x = _stack(n, 257, torch.float32, card, seed=n)
+    raw = pairwise_gram_partial(x)
+    for got, want in zip(fa.select_weights(raw, n, f, mode),
+                         fa.select_weights_plain(raw, n, f, mode)):
+        assert _same(got, want), (n, f, mode)
+
+
+@pytest.mark.parametrize("mode", fa.DIST_MODES)
+def test_select_matches_plain_with_ties_inf_and_nan(card, mode):
+    """Symmetric matrices drawn from a few levels (ties), with zeros, +inf
+    and NaN entries, and a stack with one NaN coordinate."""
+    gen = torch.Generator().manual_seed(11)
+    for trial in range(40):
+        n = int(torch.randint(3, 65, (1,), generator=gen))
+        f = int(torch.randint(0, _max_f(n, mode) + 1, (1,), generator=gen))
+        levels = int(torch.randint(1, 2 * n * n, (1,), generator=gen))
+        v = torch.randint(1, levels + 1, (n, n), generator=gen) * 0.37
+        u = torch.rand((n, n), generator=gen)
+        v[u < 0.1] = 0.0
+        v[(u >= 0.1) & (u < 0.15)] = float("inf")
+        if trial % 3 == 0:
+            v[(u >= 0.15) & (u < 0.16)] = float("nan")
+        v = torch.triu(v, 1)
+        v = (v + v.T).float().to(card)
+        for got, want in zip(fa.select_weights(v, n, f, mode),
+                             fa.select_weights_plain(v, n, f, mode)):
+            assert _same(got, want), (trial, n, f, mode)
+    x = _stack(11, 300, torch.float32, card, seed=9)
+    x[10, 3] = float("nan")
+    raw = pairwise_gram_partial(x)
+    for got, want in zip(fa.select_weights(raw, 11, 2, mode),
+                         fa.select_weights_plain(raw, 11, 2, mode)):
+        assert _same(got, want), mode
+    agg, sel, sc = fa.fused_aggregate(x, 2, mode=mode)
+    aggp, selp, scp = fa.fused_aggregate_plain(x, 2, mode=mode)
+    assert torch.equal(sel, selp) and _same(sc, scp), mode
+    assert torch.equal(torch.isnan(agg), torch.isnan(aggp)), mode
+
+
 def test_fused_aggregate_is_the_kernel_pair_bitwise(card):
     n, f = 39, 9
     x = _stack(n, 5000, torch.float32, card, seed=3)
