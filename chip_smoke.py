@@ -26,10 +26,14 @@ Phases, in order; any failure exits nonzero before the last line:
    (``bulyan_select``) at theta = 21, f = 9 and K3 (``coord_stats``) at n = 39, f = 9 at both
    widths, plus d in {1, 129, 4097}, theta in {3, 64}, n in {3, 38, 64}
    and a NaN-bearing column; for K2 in bf16 a coordinate may instead be
-   any window mean that is optimal under a tie.  Times per call of each
-   kernel, its plain version and one PyTorch call as a yardstick
-   (``torch.mm(x, x.T)``, "Gram only", for K1; ``torch.sort``, "sort
-   only", for K2 and K3), with CUDA events.
+   any window mean that is optimal under a tie.  K4 on stacks holding
+   inf, NaN and -0.0 (the reference's 0 * x rule) with the selection's,
+   all-zero, convex and duplicated weights, in all 7 modes, fp32 and
+   bf16, at d = 4097 and both widths.  Times per call of each kernel
+   (K4 also in ``cwmed`` mode, beside K3), its plain version and one
+   PyTorch call as a yardstick (``torch.mm(x, x.T)``, "Gram only", for
+   K1; ``torch.sort``, "sort only", for K2, K3 and K4 ``cwmed``), with
+   CUDA events.
 3. The main path: ``ByzantineTrainer`` in the paper's Fig. 4 setting (30
    honest + 9 Byzantine workers, ``omniscient_linf`` with the closed-form
    gamma, "anti" direction, margin 0.8, SGD with ``fading_lr(0.3, 1e4)``,
@@ -59,8 +63,10 @@ Phases, in order; any failure exits nonzero before the last line:
    tree through ``"auto"`` and ``"fused"`` within 1e-2 of the flat fp32
    rule with its leaf dtypes kept.
 6. The device time of each timed kernel and yardstick, from
-   ``torch.profiler`` over launches timed as in phase 2, and the
-   selection's event and device time in each of its five modes.  It comes last
+   ``torch.profiler`` over launches timed as in phase 2, the
+   event and device time of ``x.sum(dim=0)`` over the (39, d) stack, a
+   yardstick of reading the stack column by column, and the selection's
+   event and device time in each of its five modes.  It comes last
    because a profiler session leaves later launches slower on the host.
 7. One JSON line of per-kernel measurements, then the result line
    ``{"ok": true, "device": {...}}``.
@@ -217,20 +223,27 @@ class Timer:
         return us / 1e3 / reps
 
 
-def bound(n: int, d: int, f: int, kernel: str, elem: int) -> dict:
+def bound(n: int, d: int, f: int, kernel: str, elem: int,
+          mode: str = "bulyan-krum") -> dict:
     """Least time the card could take for one kernel at the main path's
-    shapes (``bulyan-krum`` mode for the fused kernels): the larger of
-    the bytes the function must move over the memory rate and its fp32
-    operations over the fp32 peak.
+    shapes (``bulyan-krum`` mode for the fused kernels unless ``mode``
+    says ``cwmed`` or ``krum``): the larger of the bytes the function
+    must move over the memory rate and its fp32 operations over the fp32
+    peak.
 
     Bytes: each input read once, each output written once.  Bulyan-krum's
     weights are one-hot, so the combine is a gather of the theta = n - 2f
-    picked rows, and K4 needs only those.  K5 reads the whole stack for
-    the Gram and then the picked rows again: the selection needs every
-    row's distances before the combine can start, so that second read
-    comes from HBM when the stack exceeds the L2 cache.  K2 reads the
-    (theta, d) picked stack and writes d floats; K3 reads the (n, d)
-    stack and writes two d-float outputs.
+    picked rows, but K4 must still read all n rows: the reference's
+    contraction multiplies every row by its weight, and 0 * inf is NaN,
+    so an unselected row that is not finite at a coordinate makes that
+    coordinate NaN.  K4 reads the (n, d) stack and the (theta, n)
+    weights (one row in ``krum`` mode) and writes d floats.  K5 reads the whole stack for the Gram
+    and then again for the combine: the selection needs every row's
+    distances before the combine can start, so that second read comes
+    from HBM when the stack exceeds the L2 cache.  K2 reads the (theta, d)
+    picked stack and writes d floats; K3 reads the (n, d) stack and
+    writes two d-float outputs; K4 in ``cwmed`` mode reads the stack and
+    writes one.
 
     Operations: the Gram's symmetric half and diagonal, n (n + 1) d (a
     multiply-add counts 2); a sort of m values, m (m - 1) (a
@@ -240,7 +253,9 @@ def bound(n: int, d: int, f: int, kernel: str, elem: int) -> dict:
     distances do not change between rounds); per coordinate, the sort of
     theta values and the window's 4 theta adds (K4 and K2), or the sort
     of n values, the trimmed sum's n - 2f adds and the median's 2
-    operations (K3).  The gather does no arithmetic.
+    operations (K3), or the sort of n values and the median's 2 (K4 in
+    ``cwmed`` mode).  The gather does no arithmetic, so K4 in ``krum``
+    mode does none.
     """
     theta = n - 2 * f
     stack, picked = n * d * elem, theta * d * elem
@@ -252,15 +267,19 @@ def bound(n: int, d: int, f: int, kernel: str, elem: int) -> dict:
         nbytes, ops = stack + n * n * 4, gram_ops
     elif kernel == "select_weights":
         nbytes, ops = n * n * 4 + (theta * n + 2 * n) * 4, sel_ops
+    elif kernel == "fused_coordinate" and mode == "cwmed":
+        nbytes, ops = stack + d * 4, d * (n * (n - 1) + 2)
+    elif kernel == "fused_coordinate" and mode == "krum":
+        nbytes, ops = stack + n * 4 + d * 4, 0
     elif kernel == "fused_coordinate":
-        nbytes, ops = picked + theta * n * 4 + d * 4, window_ops
+        nbytes, ops = stack + theta * n * 4 + d * 4, window_ops
     elif kernel == "bulyan_select":
         nbytes, ops = picked + d * 4, window_ops
     elif kernel == "coord_stats":
         nbytes = stack + 2 * d * 4
         ops = d * (n * (n - 1) + (n - 2 * f) + 2)
     else:
-        reread = picked if stack > L2_BYTES else 0
+        reread = stack if stack > L2_BYTES else 0
         nbytes = stack + reread + d * 4 + 2 * n * 4
         ops = gram_ops + sel_ops + window_ops
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -312,6 +331,8 @@ def check_case(torch, ops, n, f, d, dtype, seed, worst):
         err, rel = rel_err(got, want)
         expect(rel <= tol, f"K4 {mtag}: rel err {rel:.3e} > {tol}")
         note("fused_coordinate", err)
+        if mode in ("cwmed", "krum"):
+            note(f"fused_coordinate:{mode}", err)
         agg, sel, sc = fa.fused_aggregate(x, f, mode=mode)
         aggp, selp, scp = fa.fused_aggregate_plain(x, f, mode=mode)
         err, rel = rel_err(agg, aggp)
@@ -390,6 +411,99 @@ def phase_select_edges(torch, ops):
           "K5 (7 modes)", flush=True)
 
 
+def k4_cases(torch, base, w, mw, f, mode, cols):
+    """K4's non-finite contract on a finite stack: (label, stack, weights,
+    check of the output at ``cols`` or None) per case.  ``w`` is the
+    mode's selection from the plain version (None for the coordinate
+    modes), ``mw`` multikrum's convex row."""
+    n = base.shape[0]
+    half = cols[: len(cols) // 2], cols[len(cols) // 2:]
+    inf, nan = float("inf"), float("nan")
+
+    def put(*entries):
+        x = base.clone()
+        for row, where, v in entries:
+            x[row, where] = v
+        return x
+
+    if w is None:  # cwmed, trimmed_mean: rows only
+        return [("inf in one row", put((0, cols, inf)), None, None),
+                ("inf in f + 1 rows", put((slice(0, f + 1), cols, inf)),
+                 None, None),
+                ("-inf and NaN", put((1, half[0], -inf), (2, half[1], nan)),
+                 None, lambda g: bool(torch.isnan(g[half[1]]).all())),
+                ("-0.0 in every row", put((slice(None), cols, -0.0)), None,
+                 lambda g: bool((g[cols] == 0).all()))]
+    used = (w != 0).any(dim=0)
+    picked = int(torch.nonzero(w[0]).flatten()[0])
+    unsel = int(torch.nonzero(~used).flatten()[0])
+    one_hot = mode in ("krum", "geomed")
+    all_nan = lambda g: bool(torch.isnan(g[cols]).all())  # noqa: E731
+    general = mw.expand(w.shape[0], n).contiguous()
+    twice = w.clone()
+    twice[-1] = w[0]
+    return [
+        ("inf in an unselected row", put((unsel, cols, inf)), w, all_nan),
+        ("inf in a picked row", put((picked, cols, inf)), w,
+         (lambda g: bool(torch.isposinf(g[cols]).all())) if one_hot
+         else None),
+        ("NaN in an unselected and a picked row",
+         put((unsel, half[0], nan), (picked, half[1], nan)), w, all_nan),
+        ("-0.0 in a picked row", put((picked, cols, -0.0)), w,
+         (lambda g: bool((g[cols] == 0).all() and
+                         not torch.signbit(g[cols]).any())) if one_hot
+         else None),
+        ("all-zero weights", put((unsel, cols, inf)), torch.zeros_like(w),
+         lambda g: all_nan(g) and int(torch.count_nonzero(
+             torch.nan_to_num(g))) == 0),
+        ("multikrum's convex weights",
+         put((unsel, half[0], inf), (picked, half[1], -inf)), general,
+         None),
+        ("a row picked twice", put((picked, half[0], inf)), twice, None),
+    ]
+
+
+def phase_k4_nonfinite(torch, ops, worst):
+    """K4 against its plain version on stacks holding inf, NaN and -0.0,
+    with the selection's weights, all-zero weights, multikrum's convex
+    row and a row picked twice, in all 7 modes, fp32 and bf16, at
+    d = 4097 and both models' widths: NaN in the same places, the rest
+    within tolerance, and the reference's 0 * x rule where it fixes the
+    value."""
+    fa, pg = ops["fused_agg"], ops["pairwise_gram"]
+    n, f = N_MAIN, F_MAIN
+    for d in (4097, D_MLP, D_CNN):
+        cols = torch.tensor(sorted({0, 1, 2, 3, d // 2, d - 2, d - 1}),
+                            device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+            name = str(dtype).split(".")[-1]
+            base = make_stack(torch, n, d, f, dtype, 500 + d % 97)
+            raw = pg.pairwise_gram_partial_plain(base)
+            mw = fa.select_weights_plain(raw, n, f, "multikrum")[0]
+            cases = 0
+            for mode in fa.FUSED_MODES:
+                w = (None if mode in fa.COORD_MODES
+                     else fa.select_weights_plain(raw, n, f, mode)[0])
+                for label, x, wc, at_cols in k4_cases(torch, base, w, mw, f,
+                                                      mode, cols):
+                    what = f"K4 {mode} d={d} {name}: {label}"
+                    got = fa.fused_coordinate(x, wc, f, mode=mode)
+                    want = fa.fused_coordinate_plain(x, wc, f, mode=mode)
+                    torch.cuda.synchronize()
+                    err, bad = compare_nan(torch, got, want, tol, what)
+                    expect(not bool(bad.any()), f"{what}: {int(bad.sum())} "
+                           f"coordinates off the plain version")
+                    expect(at_cols is None or at_cols(got),
+                           f"{what}: {got[cols].tolist()} breaks the "
+                           f"reference's 0 * x rule")
+                    worst["fused_coordinate"] = max(
+                        worst.get("fused_coordinate", 0.0), float(err.max()))
+                    cases += 1
+            print(f"  ok  K4 non-finite contract d={d:7d} {name:8s} "
+                  f"{cases} cases, 7 modes", flush=True)
+
+
 def phase_kernels(torch, ops):
     cases = [(N_MAIN, F_MAIN, D_MLP), (N_MAIN, F_MAIN, D_CNN)]
     cases += [(N_MAIN, F_MAIN, d) for d in (1, 2, 3, 129, 4097)]
@@ -407,12 +521,18 @@ def phase_kernels(torch, ops):
 
 def time_kernels(torch, ops, d, timer):
     """Per-call ms of each kernel, its plain version and a yardstick, at
-    the main path's shape (n = 39, f = 9, fp32, bulyan-krum)."""
+    the main path's shape (n = 39, f = 9, fp32, bulyan-krum), and of K4
+    in ``krum`` mode: a gather of one row that sorts nothing, so its
+    time is that of reading the stack.  Its yardstick ``wk @ x`` is the
+    one PyTorch call that computes the same function (the (1, n) one-hot
+    row times the stack, 0 * inf = NaN included); the port never calls
+    it."""
     fa, pg = ops["fused_agg"], ops["pairwise_gram"]
     n, f, mode = N_MAIN, F_MAIN, "bulyan-krum"
     x = make_stack(torch, n, d, f, torch.float32, 99)
     raw = pg.pairwise_gram_partial(x)
     w = fa.select_weights(raw, n, f, mode)[0]
+    wk = fa.select_weights(raw, n, f, "krum")[0]
     table = {
         "pairwise_gram_partial": (
             lambda: pg.pairwise_gram_partial(x),
@@ -427,6 +547,10 @@ def time_kernels(torch, ops, d, timer):
         "fused_aggregate": (
             lambda: fa.fused_aggregate(x, f, mode=mode),
             lambda: fa.fused_aggregate_plain(x, f, mode=mode), None),
+        "fused_coordinate:krum": (
+            lambda: fa.fused_coordinate(x, wk, f, mode="krum"),
+            lambda: fa.fused_coordinate_plain(x, wk, f, mode="krum"),
+            lambda: wk @ x),
     }
     return timed(timer, table, n, d, f)
 
@@ -434,15 +558,17 @@ def time_kernels(torch, ops, d, timer):
 def timed(timer, table, n, d, f) -> dict:
     """Event ms per call of each kernel, its plain version and its
     yardstick, beside the kernel's bound.  The kernel and the yardstick
-    are kept under "calls" for :func:`device_times`."""
+    are kept under "calls" for :func:`device_times`.  A name
+    ``kernel:mode`` times a kernel in another mode than the main path's."""
     out = {}
     for name, (kern, plain, lib) in table.items():
+        kernel, _, mode = name.partition(":")
         out[name] = {"ms": timer.ms(kern, 20),
                      "plain_ms": timer.ms(plain, 3, warmup=1),
                      "library_ms": None if lib is None else timer.ms(lib,
                                                                      20),
                      "calls": (kern, lib)}
-        out[name].update(bound(n, d, f, name, 4))
+        out[name].update(bound(n, d, f, kernel, 4, mode or "bulyan-krum"))
     return out
 
 
@@ -457,6 +583,20 @@ def time_select_modes(torch, ops, timer) -> None:
                                                   m))(mode)
         print(f"  select {mode:13s} event {timer.ms(fn, 20) * 1e3:7.1f} us  "
               f"device {timer.device_ms(fn, 20) * 1e3:7.1f} us", flush=True)
+
+
+def read_yardstick(torch, timer) -> None:
+    """Event and device time of ``x.sum(dim=0)`` over the main path's
+    (39, d) fp32 stack at both widths: one PyTorch call that reads the
+    whole stack once, column by column, as K3 and K4 do."""
+    for model, d in (("mlp", D_MLP), ("cnn", D_CNN)):
+        x = make_stack(torch, N_MAIN, d, F_MAIN, torch.float32, 95)
+        event = timer.ms(lambda: x.sum(dim=0), 20) * 1e3
+        us = timer.device_ms(lambda: x.sum(dim=0), 20) * 1e3
+        device = (f"device {us:.1f} us ({N_MAIN * d * 4 / us / 1e6:.2f} "
+                  f"TB/s)" if us > 0 else "device time not recorded")
+        print(f"  {model} read yardstick x.sum(dim=0): event {event:.1f} us, "
+              f"{device}", flush=True)
 
 
 def device_times(timer, timings) -> None:
@@ -488,13 +628,21 @@ def coord_stack(torch, rows, d, dtype, seed, nan_col=None):
 
 
 def compare_nan(torch, got, want, tol, what):
-    """(max abs error, mask of coordinates outside tol) after checking
-    that NaNs sit in the same places."""
+    """(abs error, mask of coordinates outside tol) after checking that
+    NaN and +-inf sit in the same places, the infinities with the same
+    signs.  The tolerance scales with max(1, max |want|) over the finite
+    coordinates only, so an inf in ``want`` widens nothing."""
+    got, want = got.double(), want.double()
     expect(torch.equal(torch.isnan(got), torch.isnan(want)),
            f"{what}: NaN pattern differs")
-    got, want = torch.nan_to_num(got), torch.nan_to_num(want)
-    err = (got.double() - want.double()).abs()
-    scale = max(1.0, float(want.double().abs().max()))
+    inf = torch.isinf(want)
+    expect(torch.equal(torch.isinf(got), inf)
+           and torch.equal(got[inf], want[inf]), f"{what}: infinities differ")
+    fin = torch.isfinite(want)
+    zero = torch.zeros_like(want)
+    got, want = torch.where(fin, got, zero), torch.where(fin, want, zero)
+    err = (got - want).abs()
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
     return err, err > tol * scale
 
 
@@ -580,10 +728,11 @@ def phase_coord_kernels(torch, ops, worst):
 
 
 def time_coord_kernels(torch, ops, d, timer):
-    """Per-call ms of K2 and K3, their plain versions and ``torch.sort``
-    (sort only), at the main path's shapes (theta = 21 picked rows for
-    K2, n = 39 for K3, f = 9, fp32)."""
-    bs, cs = ops["bulyan_select"], ops["coord_stats"]
+    """Per-call ms of K2, K3 and K4 in ``cwmed`` mode (K3's sort), their
+    plain versions and ``torch.sort`` (sort only), at the main path's
+    shapes (theta = 21 picked rows for K2, n = 39 for K3 and K4, f = 9,
+    fp32)."""
+    bs, cs, fa = ops["bulyan_select"], ops["coord_stats"], ops["fused_agg"]
     xs = make_stack(torch, N_MAIN - 2 * F_MAIN, d, 0, torch.float32, 98)
     xc = make_stack(torch, N_MAIN, d, F_MAIN, torch.float32, 97)
     table = {
@@ -593,6 +742,11 @@ def time_coord_kernels(torch, ops, d, timer):
         "coord_stats": (lambda: cs.coord_stats(xc, F_MAIN),
                         lambda: cs.coord_stats_plain(xc, F_MAIN),
                         lambda: torch.sort(xc, dim=0)),
+        "fused_coordinate:cwmed": (
+            lambda: fa.fused_coordinate(xc, None, F_MAIN, mode="cwmed"),
+            lambda: fa.fused_coordinate_plain(xc, None, F_MAIN,
+                                              mode="cwmed"),
+            lambda: torch.sort(xc, dim=0)),
     }
     return timed(timer, table, N_MAIN, d, F_MAIN)
 
@@ -697,7 +851,8 @@ def run_model(torch, rt, kind, steps, runs):
 
 
 #: the port's kernels as the profiler names them
-PORT_KERNELS = ("gram_kernel", "select_kernel", "combine_kernel")
+PORT_KERNELS = ("gram_kernel", "select_kernel", "combine_single_kernel",
+                "combine_bulyan_kernel", "coord_stats_kernel")
 #: the port's profiler spans (``repro_torch.obs.trace.named_span``): the
 #: profiler lists each with the device time of the kernels under it, so
 #: they are not kernels of their own
@@ -855,7 +1010,7 @@ def phase_tree(torch, rt, kind):
     print(f"  {kind} gradient scale: max |g| over the tree "
           f"{float(flat.abs().max()):.3e}, rms "
           f"{float(flat.pow(2).mean().sqrt()):.3e}", flush=True)
-    results = {}
+    results, fused_launches = {}, {}
     for backend in ("xla", "pallas", "fused"):
         worst_rel, smallest = 0.0, float("inf")
         for gar in TREE_RULES:
@@ -874,6 +1029,8 @@ def phase_tree(torch, rt, kind):
             expect(torch.equal(res.selected, dense[gar].selected),
                    f"{what}: selected differs from the flat rule")
             results[(backend, gar)] = got
+            if backend == "fused":
+                fused_launches[gar] = counts
             worst_rel, smallest = max(worst_rel, rel), min(smallest, scale)
         print(f"  ok  {kind} ({n_leaves} leaves, d={flat.shape[1]}) "
               f"{backend}: {len(TREE_RULES)} rules match the flat rule "
@@ -931,7 +1088,8 @@ def phase_tree(torch, rt, kind):
             print(f"  {kind} {gar:12s} {backend:6s} "
                   f"{agg_ms[(gar, backend)]:.3f} ms per aggregation "
                   f"(median of 20)", flush=True)
-    return {"launches": path, "agg_ms": agg_ms, "n_leaves": n_leaves}
+    return {"launches": path, "agg_ms": agg_ms, "n_leaves": n_leaves,
+            "fused_launches": fused_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1052,6 +1210,7 @@ def main() -> int:
     print("== phase 2: kernels vs plain versions", flush=True)
     worst = phase_kernels(torch, ops)
     phase_select_edges(torch, ops)
+    phase_k4_nonfinite(torch, ops, worst)
     phase_coord_kernels(torch, ops, worst)
     timer = Timer(torch)
     timings = {}
@@ -1086,19 +1245,23 @@ def main() -> int:
 
     print("== phase 6: device times (torch.profiler)", flush=True)
     device_times(timer, timings)
+    read_yardstick(torch, timer)
     time_select_modes(torch, ops, timer)
 
     kernels = []
     for model, kind in (("mlp", "mnist"), ("cnn", "cifar")):
         for name, r in timings[model].items():
-            # K2 and K3 run on the tree phase's kernel-pair route
-            path = runs if name in TRAIN_KERNELS else tree_runs
-            launches = path[kind]["launches"][name]
+            kernel, _, mode = name.partition(":")
+            if mode:  # K4 in another mode: the tree phase's fused rule
+                launches = tree_runs[kind]["fused_launches"][mode][kernel]
+            else:     # K2 and K3 run on the tree phase's kernel-pair route
+                path = runs if name in TRAIN_KERNELS else tree_runs
+                launches = path[kind]["launches"][name]
             expect(launches > 0, f"{name} was not launched on its path "
                    f"({model})")
             kernels.append({
                 "name": f"{name}@{model}", "route": "cuda",
-                "source": SOURCES[name], "replaces": REPLACES[name],
+                "source": SOURCES[kernel], "replaces": REPLACES[kernel],
                 "launches": launches,
                 "max_abs_err": worst[name], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -4,8 +4,8 @@
 // repro/kernels/fused_agg.py:
 //   * select_kernel   - the in-kernel selection of _make_megakernel
 //                       (select_weights, fused_agg.py:164);
-//   * combine_kernel  - K4, _make_pair_kernel via fused_coordinate, whose
-//                       body is also the megakernel's phase 1.
+//   * combine_*_kernel - K4, _make_pair_kernel via fused_coordinate,
+//                       whose body is also the megakernel's phase 1.
 // K5 (fused_aggregate) is K1 + select + combine on one stream, so the
 // megakernel equals the kernel pair bit for bit by construction.
 //
@@ -19,20 +19,27 @@
 // 1024 threads) and every round walks the sorted order of the rows still
 // available; the argmin is a warp reduction.
 //
-// combine_kernel: one thread per coordinate, loads coalesced along d,
-// the weighted rows and the sort in shared memory (rows x threads,
-// thread-major so neighbouring threads hit neighbouring banks).  Bound:
-// the n * d read of the stack.
+// combine (K4): bound by the n * d read of the stack.  Contracting the
+// (theta_w, n) weights with each column through shared memory would
+// cost ~3,400 shared accesses per coordinate for bulyan-krum at n = 39
+// (3 per fmaf, then the sort), and the shared-memory pipe would set the
+// time.  So each CTA decodes the weights once (one-hot, all-zero or
+// general rows), then walks coordinate tiles
+// of a persistent grid; per coordinate the values live in registers:
+// every row is loaded once (for its value or, by the reference's 0 * x
+// rule, for its finiteness), then sorted and windowed by common.cuh's
+// register form.  Three kernels: combine_single_kernel (modes 0..2),
+// combine_bulyan_kernel (3, 4) and K3's coord_stats_kernel (5, 6, one of
+// its two outputs; common.cuh).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "combine.cuh"
 #include "common.cuh"
 
 namespace repro_torch {
 
-constexpr int kMaxN = 64;
-constexpr int kCombineThreads = 128;
 
 __device__ __forceinline__ float finalized(float raw, int i, int j) {
   // finalize_dists: clamp fp-cancellation negatives, zero the diagonal
@@ -240,63 +247,153 @@ select_kernel(const float* __restrict__ dist2, int n, int f, int mode,
   }
 }
 
-// One output coordinate per thread.  Shared memory: the (theta_w, n)
-// weights, then `rows` values per thread at buf[r * blockDim + tid].
+// ---------------------------------------------------------------------------
+// K4: combine
+// ---------------------------------------------------------------------------
+
+constexpr int kCombineThreads = 128;
+
+// Once per CTA: classify each of the theta_w weight rows (warp w takes
+// rows w, w + 4, ...; n <= 64 entries as two per lane).  A row is
+// one-hot when exactly one entry is nonzero and that entry is exactly
+// 1.0f; +-0.0 both count as zero, NaN as nonzero.  Every lane issues all
+// its loads before the first ballot, so the decode costs one trip to L2.
+constexpr int kRowsPerWarp = kMaxN / (kCombineThreads / 32);
+
+__device__ __forceinline__ void decode_rows(const float* __restrict__ w,
+                                            int theta_w, int n,
+                                            int* __restrict__ kind) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float a[kRowsPerWarp], b[kRowsPerWarp];
+#pragma unroll
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+    const int t = warp + j * (kCombineThreads / 32);
+    a[j] = (t < theta_w && lane < n) ? w[t * n + lane] : 0.f;
+    b[j] = (t < theta_w && lane + 32 < n) ? w[t * n + lane + 32] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kRowsPerWarp; ++j) {
+    const int t = warp + j * (kCombineThreads / 32);
+    const unsigned nz_a = __ballot_sync(0xffffffffu, a[j] != 0.f);
+    const unsigned nz_b = __ballot_sync(0xffffffffu, b[j] != 0.f);
+    const unsigned one_a = __ballot_sync(0xffffffffu, a[j] == 1.f);
+    const unsigned one_b = __ballot_sync(0xffffffffu, b[j] == 1.f);
+    int k = kRowGeneral;
+    if ((nz_a | nz_b) == 0u) {
+      k = kRowZero;
+    } else if (__popc(nz_a) + __popc(nz_b) == 1 && nz_a == one_a &&
+               nz_b == one_b) {
+      k = nz_a ? __ffs(nz_a) - 1 : 32 + __ffs(nz_b) - 1;
+    }
+    if (lane == 0 && t < theta_w) kind[t] = k;
+  }
+  __syncthreads();
+}
+
+// krum, geomed, multikrum (modes 0..2): the one weight row's value.
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
-combine_kernel(const T* __restrict__ x, int n, long long d,
-               const float* __restrict__ weights, int theta_w, int f,
-               int mode, float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const bool coord = (mode == 5 || mode == 6);
-  float* w = smem;
-  float* buf = smem + (coord ? 0 : theta_w * n);
-  const int tid = threadIdx.x;
-  const int stride = blockDim.x;
-  if (!coord) {
-    for (int e = tid; e < theta_w * n; e += blockDim.x) w[e] = weights[e];
-    __syncthreads();
-  }
-  const long long c = (long long)blockIdx.x * blockDim.x + tid;
-  if (c >= d) return;
-  float* col = buf + tid;
+combine_single_kernel(const T* __restrict__ x, int n, long long d,
+                      const float* __restrict__ weights,
+                      float* __restrict__ out) {
+  __shared__ int kind[kMaxN];
+  decode_rows(weights, 1, n, kind);
+  const int k = kind[0];
+  const long long step = (long long)gridDim.x * kCombineThreads;
+  for (long long c = (long long)blockIdx.x * kCombineThreads + threadIdx.x;
+       c < d; c += step)
+    out[c] = single_row(x + c, n, d, weights, k);
+}
 
-  if (coord) {
-    for (int i = 0; i < n; ++i) col[i * stride] = to_float(x[i * d + c]);
-    oe_sort_col(col, stride, n);
-    out[c] = (mode == 5) ? coord_median_col(col, stride, n)
-                         : coord_trimmed_mean_col(col, stride, n, f);
-    return;
+// bulyan-krum, bulyan-geomed (modes 3, 4): Bulyan's window over the
+// theta_w rows' values, sorted in a register array of the bucket M of
+// theta_w.  When the rows pick distinct workers (every selection that met
+// no NaN), the values are the picked rows' own (combine.cuh's
+// picked_column: each row of the stack loaded once); otherwise every row
+// takes the fmaf chain.
+template <typename T, int M>
+__global__ void __launch_bounds__(kCombineThreads)
+combine_bulyan_kernel(const T* __restrict__ x, int n, long long d,
+                      const float* __restrict__ weights, int theta_w, int f,
+                      float* __restrict__ out) {
+  __shared__ int kind[kMaxN];
+  __shared__ int other[kMaxN];
+  decode_rows(weights, theta_w, n, kind);
+  unsigned long long picked = 0ull;
+  bool distinct = true;
+  for (int t = 0; t < theta_w; ++t) {
+    const int k = kind[t];
+    distinct = distinct && k >= 0 && !((picked >> k) & 1ull);
+    if (k >= 0) picked |= 1ull << k;
   }
-  // y[t] = sum_i w[t][i] * x[i] in index order: an exact gather for
-  // one-hot rows
-  for (int t = 0; t < theta_w; ++t) col[t * stride] = 0.f;
-  for (int i = 0; i < n; ++i) {
-    const float xi = to_float(x[i * d + c]);
-    for (int t = 0; t < theta_w; ++t)
-      col[t * stride] = fmaf(w[t * n + i], xi, col[t * stride]);
+  if (threadIdx.x < 32) {  // the rows left out, compacted in row order
+    const int lane = threadIdx.x;
+    const bool out_a = lane < n && !((picked >> lane) & 1ull);
+    const bool out_b = lane + 32 < n && !((picked >> (lane + 32)) & 1ull);
+    const unsigned ba = __ballot_sync(0xffffffffu, out_a);
+    const unsigned bb = __ballot_sync(0xffffffffu, out_b);
+    const unsigned below = (1u << lane) - 1u;
+    if (out_a) other[__popc(ba & below)] = lane;
+    if (out_b) other[__popc(ba) + __popc(bb & below)] = lane + 32;
   }
-  if (mode == 3 || mode == 4) {
-    oe_sort_col(col, stride, theta_w);
-    out[c] = bulyan_window_col(col, stride, theta_w, f);
-  } else {
-    out[c] = col[0];
+  __syncthreads();
+  const BulyanRows<M> rows =
+      distinct ? bulyan_rows<M>(kind, other, theta_w, n) : BulyanRows<M>{};
+  const long long step = (long long)gridDim.x * kCombineThreads;
+  for (long long c = (long long)blockIdx.x * kCombineThreads + threadIdx.x;
+       c < d; c += step) {
+    float y[M];
+    bool nan;
+    if (distinct) {
+      nan = picked_column(x + c, d, rows, theta_w, y);
+    } else {
+      chain_column(x + c, n, d, weights, theta_w, y);
+      nan = any_nan(y);
+    }
+    sort_regs(y);
+    const float r = bulyan_window_regs(y, theta_w, f);
+    out[c] = nan ? CUDART_NAN_F : r;
   }
+}
+
+template <typename T>
+static int launch_single(const T* x, int n, long long d,
+                         const float* weights, float* out, cudaStream_t s) {
+  static int resident = 0;
+  const unsigned grid = persistent_grid(combine_single_kernel<T>,
+                                        kCombineThreads, d, &resident);
+  combine_single_kernel<T><<<grid, kCombineThreads, 0, s>>>(x, n, d,
+                                                            weights, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int M>
+static int launch_bulyan(const T* x, int n, long long d,
+                         const float* weights, int theta_w, int f,
+                         float* out, cudaStream_t s) {
+  static int resident = 0;
+  const unsigned grid = persistent_grid(combine_bulyan_kernel<T, M>,
+                                        kCombineThreads, d, &resident);
+  combine_bulyan_kernel<T, M><<<grid, kCombineThreads, 0, s>>>(
+      x, n, d, weights, theta_w, f, out);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int combine(const T* x, int n, long long d, const float* weights,
                    int theta_w, int f, int mode, float* out,
                    void* stream_ptr) {
-  const bool coord = (mode == 5 || mode == 6);
-  const int rows = coord ? n : theta_w;
-  const size_t smem =
-      sizeof(float) * ((coord ? 0 : theta_w * n) + rows * kCombineThreads);
-  const long long blocks = (d + kCombineThreads - 1) / kCombineThreads;
-  combine_kernel<T><<<(unsigned)blocks, kCombineThreads, smem,
-                      static_cast<cudaStream_t>(stream_ptr)>>>(
-      x, n, d, weights, theta_w, f, mode, out);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if (mode == 5)  // cwmed: K3's kernel, its median only
+    return launch_coord_stats<kMedian>(x, n, d, f, out, nullptr, s);
+  if (mode == 6)  // trimmed_mean: K3's kernel, its trimmed mean only
+    return launch_coord_stats<kTrimmed>(x, n, d, f, nullptr, out, s);
+  if (mode != 3 && mode != 4)  // krum, geomed, multikrum: one row
+    return launch_single<T>(x, n, d, weights, out, s);
+  return with_bucket(theta_w, [&](auto bucket) {
+    return launch_bulyan<T, decltype(bucket)::value>(x, n, d, weights,
+                                                     theta_w, f, out, s);
+  });
 }
 
 }  // namespace repro_torch

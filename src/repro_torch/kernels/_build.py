@@ -80,7 +80,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> pathlib.Path:
     h = hashlib.sha256()
-    for src in (_CSRC / f"{name}.cu", _CSRC / "common.cuh"):
+    for src in (_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     return _BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 

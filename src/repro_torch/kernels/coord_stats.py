@@ -4,9 +4,10 @@ Counterpart of ``repro/kernels/coord_stats.py``.  Replaces the Pallas
 kernel ``_make_kernel`` (``coord_stats.py:29``) reached through
 ``coord_stats`` (``:40``); the CUDA source is
 ``repro_torch/csrc/coord_stats.cu``.  Per coordinate of an ``(n, d)``
-stack: one odd-even sort of the n values, then the median (the mean of
-the two middle values for even n) and the mean of the sorted values
-``f .. n - f - 1``.  The two rules share their sort, so the stack is
+stack: one sort of the n values (the reference's odd-even network here,
+Batcher's network in registers with a NaN flag in the kernel: the same
+sorted values), then the median (the mean of the two middle values for
+even n) and the mean of the sorted values ``f .. n - f - 1``.  The two rules share their sort, so the stack is
 read once for both; the kernel is bounded by that read (n * d elements)
 and the two ``(d,)`` float writes.
 

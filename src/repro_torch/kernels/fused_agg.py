@@ -12,9 +12,12 @@ K5 is three kernels on one stream, each a wrapper of this package:
      mode's selection (Krum / GeoMed scores, first-index argmin,
      multikrum, Bulyan's theta = n - 2f extraction loop) into a
      ``(theta_w, n)`` weight matrix;
-  3. K4, :func:`fused_coordinate`: one thread per coordinate contracts
-     the n values with each weight row (an exact gather for one-hot
-     rows), sorts them and applies the coordinate phase (second read).
+  3. K4, :func:`fused_coordinate`: each CTA decodes the weight rows
+     once (one-hot, all-zero or general); per coordinate a thread
+     gathers the picked values into registers (every row still read,
+     for the reference's 0 * x rule: an unselected inf makes NaN), sorts
+     them with a network fixed at compile time and applies the
+     coordinate phase (second read).
 
 So ``fused_aggregate`` equals K1 + ``select_weights`` + K4 bit for bit
 by construction, the port's form of the reference's megakernel-vs-pair

@@ -247,3 +247,109 @@ def test_coord_kernels_refuse_block_d_on_the_card(card):
         bulyan_select(x, 9, block_d=128)
     with pytest.raises(ValueError, match="picks its own chunking"):
         coord_stats(x, 9, block_d=128)
+
+
+# ---------------------------------------------------------------------------
+# K4 and K3 in registers: every size bucket, the non-finite contract
+# ---------------------------------------------------------------------------
+
+def _k4_weights(x, n, f, mode):
+    raw = pairwise_gram_partial_plain(x)
+    return fa.select_weights_plain(raw, n, f, mode)[0]
+
+
+def _close_same_nan(got, want, tol):
+    """NaN and +-inf in the same places (the infinities with the same
+    signs), the rest within tol of max(1, max |finite want|)."""
+    got, want = got.double(), want.double()
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        return False
+    inf = torch.isinf(want)
+    if not (torch.equal(torch.isinf(got), inf)
+            and torch.equal(got[inf], want[inf])):
+        return False
+    fin = torch.isfinite(want)
+    return _rel(got[fin], want[fin]) <= tol if bool(fin.any()) else True
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("mode", fa.DIST_MODES)
+def test_combine_holds_the_zero_times_x_rule(card, mode, dtype, tol):
+    """An inf in an unselected row is NaN there (0 * inf), an inf in
+    krum's picked row stays inf, a picked -0.0 comes out +0.0, all-zero
+    weights give +0.0 or NaN, and a general (convex) matrix or a row
+    picked twice takes the fmaf chain: each against the plain version."""
+    n, f, d = 39, 9, 1000
+    base = _stack(n, d, dtype, card, seed=41)
+    w = _k4_weights(base, n, f, mode)
+    mw = _k4_weights(base, n, f, "multikrum").expand(w.shape[0], n)
+    picked = int(torch.nonzero(w[0]).flatten()[0])
+    unsel = int(torch.nonzero(~(w != 0).any(dim=0)).flatten()[0])
+    cols = [0, 5, 500, 998, 999]
+    for row, value, weights in (
+            (unsel, float("inf"), w), (picked, float("inf"), w),
+            (unsel, float("nan"), w), (picked, float("nan"), w),
+            (picked, -0.0, w), (unsel, float("inf"), torch.zeros_like(w)),
+            (picked, -float("inf"), mw.contiguous()),
+            (picked, float("inf"), torch.cat([w[:-1], w[:1]]))):
+        x = base.clone()
+        x[row, cols] = value
+        got = fa.fused_coordinate(x, weights, f, mode=mode)
+        want = fa.fused_coordinate_plain(x, weights, f, mode=mode)
+        assert _close_same_nan(got, want, tol), (mode, row, value)
+        if row == unsel and weights is not mw:
+            assert bool(torch.isnan(got[cols]).all()), (mode, value)
+        if mode == "krum" and row == picked and weights is w:
+            assert _same(got[cols], x[picked, cols].float())
+            assert not torch.signbit(got[cols]).any()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_coordinate_modes_and_k3_at_every_n(card, dtype, tol):
+    """Every n from 3 to 64 (every size bucket and its edges), f at the
+    largest and a middle value, one column with a NaN."""
+    for n in range(3, 65):
+        for f in sorted({(n - 1) // 2, n // 4}):
+            x = _stack(n, 131, dtype, card, seed=n + f)
+            x[n // 2, 7] = float("nan")
+            med, trim = coord_stats(x, f)
+            medp, trimp = coord_stats_plain(x, f)
+            assert _close_same_nan(med, medp, tol), (n, f)
+            assert _close_same_nan(trim, trimp, tol), (n, f)
+            assert bool(torch.isnan(med[7])) and bool(torch.isnan(trim[7]))
+            for mode, want in (("cwmed", medp), ("trimmed_mean", trimp)):
+                got = fa.fused_coordinate(x, None, f, mode=mode)
+                assert _close_same_nan(got, want, tol), (n, f, mode)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_bulyan_combine_at_every_theta_bucket(card, dtype, tol):
+    """Bulyan's theta = n - 2f in every size bucket and at its edges,
+    with the selection's weights and with a general matrix."""
+    gen = torch.Generator().manual_seed(5)
+    for n, f in ((3, 0), (7, 1), (8, 0), (16, 0), (17, 0), (24, 0),
+                 (25, 1), (39, 9), (40, 4), (48, 0), (49, 0), (56, 5),
+                 (64, 0), (64, 15)):
+        x = _stack(n, 257, dtype, card, seed=n)
+        for mode in ("bulyan-krum", "bulyan-geomed"):
+            w = _k4_weights(x, n, f, mode)
+            general = torch.rand(w.shape, generator=gen).to(card)
+            for weights in (w, general):
+                got = fa.fused_coordinate(x, weights, f, mode=mode)
+                want = fa.fused_coordinate_plain(x, weights, f, mode=mode)
+                assert _rel(got, want) <= tol, (n, f, mode)
+
+
+def test_k4_and_k3_take_unaligned_rows(card):
+    """A contiguous stack that starts one row into a bigger one (rows
+    only 4-byte aligned)."""
+    big = _stack(40, 4098, torch.float32, card, seed=2)
+    x = big[1:]
+    for got, want in zip(coord_stats(x, 9), coord_stats_plain(x, 9)):
+        assert _rel(got, want) <= 1e-4
+    w = _k4_weights(x, 39, 9, "bulyan-krum")
+    assert _rel(fa.fused_coordinate(x, w, 9, mode="bulyan-krum"),
+                fa.fused_coordinate_plain(x, w, 9, mode="bulyan-krum")) <= 1e-4
