@@ -25,8 +25,11 @@ Phases, in order; any failure exits nonzero before the last line:
    selection in all five distance modes and through K5.  K2
    (``bulyan_select``) at theta = 21, f = 9 and K3 (``coord_stats``) at n = 39, f = 9 at both
    widths, plus d in {1, 129, 4097}, theta in {3, 64}, n in {3, 38, 64}
-   and a NaN-bearing column; for K2 in bf16 a coordinate may instead be
-   any window mean that is optimal under a tie.  K4 on stacks holding
+   and a NaN-bearing column; K2 also with theta in every size bucket of
+   its register sort and at its edges (d = 4097, two f each) on columns
+   holding NaN, +inf, -inf, both infinities and -0.0, with NaN and the
+   infinities in the plain version's places; for K2 in bf16 a coordinate
+   may instead be any window mean that is optimal under a tie.  K4 on stacks holding
    inf, NaN and -0.0 (the reference's 0 * x rule) with the selection's,
    all-zero, convex and duplicated weights, in all 7 modes, fp32 and
    bf16, at d = 4097 and both widths.  Times per call of each kernel
@@ -65,7 +68,9 @@ Phases, in order; any failure exits nonzero before the last line:
 6. The device time of each timed kernel and yardstick, from
    ``torch.profiler`` over launches timed as in phase 2, the
    event and device time of ``x.sum(dim=0)`` over the (39, d) stack, a
-   yardstick of reading the stack column by column, and the selection's
+   yardstick of reading the stack column by column, K2's device time
+   beside three reads of its (21, d) stack (K4 in ``cwmed`` and ``krum``
+   mode, ``x.sum(dim=0)``), and the selection's
    event and device time in each of its five modes.  It comes last
    because a profiler session leaves later launches slower on the host.
 7. One JSON line of per-kernel measurements, then the result line
@@ -117,6 +122,8 @@ SOURCES = {
     "bulyan_select": "src/repro_torch/csrc/bulyan_select.cu",
     "coord_stats": "src/repro_torch/csrc/coord_stats.cu",
 }
+#: K2's theta in every size bucket of the register sort and at its edges
+K2_THETAS = (3, 8, 9, 16, 17, 21, 24, 25, 40, 48, 49, 64)
 #: the kernels of PR 11's training path (phase 3)
 TRAIN_KERNELS = ("pairwise_gram_partial", "select_weights",
                  "fused_coordinate", "fused_aggregate")
@@ -599,6 +606,31 @@ def read_yardstick(torch, timer) -> None:
               f"{device}", flush=True)
 
 
+def k2_yardsticks(torch, ops, timer) -> None:
+    """Device time of K2 beside three reads of its (21, d) stack at both
+    widths: K4 in ``cwmed`` mode (K2's kernel with the median in place of
+    Bulyan's window: the load and the sort), K4 in ``krum`` mode (a
+    gather of one row that reads every row and sorts nothing) and
+    ``x.sum(dim=0)`` (one PyTorch call that reads the stack column by
+    column): what K2's read, sort and window each cost."""
+    bs, fa = ops["bulyan_select"], ops["fused_agg"]
+    theta = N_MAIN - 2 * F_MAIN
+    for model, d in (("mlp", D_MLP), ("cnn", D_CNN)):
+        x = make_stack(torch, theta, d, 0, torch.float32, 98)
+        w = torch.zeros((1, theta), device="cuda")
+        w[0, 0] = 1.0
+        parts = (("K2", lambda: bs.bulyan_select(x, F_MAIN)),
+                 ("K4 cwmed", lambda: fa.fused_coordinate(
+                     x, None, F_MAIN, mode="cwmed")),
+                 ("K4 krum", lambda: fa.fused_coordinate(
+                     x, w, F_MAIN, mode="krum")),
+                 ("x.sum(dim=0)", lambda: x.sum(dim=0)))
+        line = ", ".join(f"{name} {timer.device_ms(fn, 20) * 1e3:.1f}"
+                         for name, fn in parts)
+        print(f"  {model} K2's ({theta}, {d}) stack, device us: {line}",
+              flush=True)
+
+
 def device_times(timer, timings) -> None:
     """The profiler's device ms per call of each timed kernel and
     yardstick (phase 6).  It runs last: once a profiler session has run,
@@ -663,14 +695,47 @@ def tie_optimal(torch, x, f, got):
     return (tie & close).any(0)
 
 
-def check_k2(torch, bs, theta, f, d, dtype, seed, worst, nan_col=None):
+#: K2's poisoned columns (``check_k2(..., poison=True)``): one +inf, one
+#: -inf, a +inf and a -inf, all -0.0, in rows picked at random
+K2_POS, K2_NEG, K2_BOTH, K2_NEG_ZERO = 1, 2, 3, 4
+
+
+def poison_k2(torch, x, seed):
+    """K2's poisoned columns in a copy of the (theta, d) stack x."""
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randperm(x.shape[0], generator=g).tolist()
+    x = x.clone()
+    x[rows[0], K2_POS] = float("inf")
+    x[rows[0], K2_NEG] = -float("inf")
+    x[rows[0], K2_BOTH] = float("inf")
+    x[rows[1], K2_BOTH] = -float("inf")
+    x[:, K2_NEG_ZERO] = -0.0
+    return x
+
+
+def check_k2(torch, bs, theta, f, d, dtype, seed, worst, nan_col=None,
+             poison=False):
+    """K2 against its plain version; with ``poison`` also on K2's
+    poisoned columns, where an inf is not a NaN: a +inf leaves the best
+    window once f >= 1 and a -inf gives -inf, as in the reference."""
     tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
-    tag = f"K2 theta={theta} f={f} d={d} {str(dtype).split('.')[-1]}"
+    tag = (f"K2 theta={theta} f={f} d={d} {str(dtype).split('.')[-1]}"
+           f"{' poisoned' if poison else ''}")
     x = coord_stack(torch, theta, d, dtype, seed, nan_col)
+    if poison:
+        x = poison_k2(torch, x, seed)
     got = bs.bulyan_select(x, f)
     want = bs.bulyan_select_plain(x, f)
     torch.cuda.synchronize()
     err, bad = compare_nan(torch, got, want, tol, tag)
+    if poison:
+        expect(float(got[K2_NEG]) == -math.inf, f"{tag}: -inf column gave "
+               f"{float(got[K2_NEG])}")
+        expect(bool(torch.isfinite(got[K2_POS])) if f
+               else float(got[K2_POS]) == math.inf,
+               f"{tag}: +inf column gave {float(got[K2_POS])}")
+        expect(float(got[K2_NEG_ZERO]) == 0.0, f"{tag}: -0.0 column gave "
+               f"{float(got[K2_NEG_ZERO])}")
     if dtype == torch.bfloat16 and bool(bad.any()):
         excused = bad & tie_optimal(torch, x, f, torch.nan_to_num(got))
         bad &= ~excused
@@ -725,6 +790,16 @@ def phase_coord_kernels(torch, ops, worst):
     check_k3(torch, cs, N_MAIN, F_MAIN, 4097, torch.float32, 8, worst,
              nan_col=7)
     print("  ok  K2 and K3 with a NaN-bearing column", flush=True)
+    # K2 in every size bucket of theta and at its edges, at the largest f
+    # and a quarter of it, on a NaN column and the poisoned columns
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows in K2_THETAS:
+            for f in sorted({(rows - 1) // 2, rows // 4}):
+                seed += 1
+                check_k2(torch, bs, rows, f, 4097, dtype, seed, worst,
+                         nan_col=7, poison=True)
+        print(f"  ok  K2 theta in {K2_THETAS}, d=4097, NaN / inf / -inf / "
+              f"-0.0 columns, {str(dtype).split('.')[-1]}", flush=True)
 
 
 def time_coord_kernels(torch, ops, d, timer):
@@ -1246,6 +1321,7 @@ def main() -> int:
     print("== phase 6: device times (torch.profiler)", flush=True)
     device_times(timer, timings)
     read_yardstick(torch, timer)
+    k2_yardsticks(torch, ops, timer)
     time_select_modes(torch, ops, timer)
 
     kernels = []

@@ -1,26 +1,28 @@
-// Device-function twins of repro_torch/kernels/common.py.
+// Device-function twins of repro_torch/kernels/common.py, and the
+// coordinate kernel of K2 and K3.
 //
-// Two forms.  The register form (K3, K4) holds one coordinate's values in
-// a fixed-size register array float v[M], M a compile-time size bucket
-// (kBuckets), padded with +inf: a sorting network fixed at compile time
-// (Batcher's odd-even merge sort, its comparators that touch a padding
-// slot dropped), then Bulyan's window, the median and the trimmed mean
-// with runtime counts but only compile-time register indices.  The
-// shared-memory form (K2) keeps the column strided in shared memory
-// (element r at col[r * stride]) and runs the reference's odd-even
-// transposition network step for step.  The file also holds K3's kernel,
-// coord_stats_kernel, which K4's cwmed and trimmed_mean modes launch too.
+// The register form holds one coordinate's values in a fixed-size
+// register array float v[M], M a compile-time size bucket (bucket_of),
+// padded with +inf: a sorting network fixed at compile time (Batcher's
+// odd-even merge sort, its comparators that touch a padding slot
+// dropped), then Bulyan's window, the median and the trimmed mean with
+// runtime counts but only compile-time register indices.  The file also
+// holds coord_stats_kernel, which K2 (Bulyan's window), K3 (median and
+// trimmed mean) and K4's cwmed and trimmed_mean modes launch; K4's
+// Bulyan modes sort and window their gathered values with the same
+// functions.
 //
 // The arithmetic of the combine bodies is the reference's
 // (repro/kernels/common.py): Bulyan's window by running prefix sums with
 // a first-window tiebreak, the median as the mean of the two middle
 // values for even counts, the f-trimmed mean, each summed in row order
-// of the sorted values.  The register network sorts with fminf / fmaxf,
-// which drop NaN, so its callers carry a NaN flag per coordinate: the
-// reference's NaN-propagating network turns a column that holds one NaN
-// into NaN at every position, and so does every result of that column.
-// Without NaN the two networks give the same sorted values, up to the
-// order of -0.0 and +0.0.
+// of the sorted values.  The reference sorts with an odd-even
+// transposition network of NaN-propagating min / max; the register
+// network sorts with fminf / fmaxf, which drop NaN, so its callers carry
+// a NaN flag per coordinate: the reference's network turns a column that
+// holds one NaN into NaN at every position, and so does every result of
+// that column.  Without NaN the two networks give the same sorted
+// values, up to the order of -0.0 and +0.0.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,71 +40,6 @@ constexpr int kMaxN = 64;  // the kernels take n <= 64 rows
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// ---------------------------------------------------------------------------
-// shared-memory form (K2)
-// ---------------------------------------------------------------------------
-
-// jnp.minimum / jnp.maximum propagate NaN; fminf / fmaxf would drop it.
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || a < b) ? a : b;
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || a > b) ? a : b;
-}
-
-// Odd-even transposition sort of m values, ascending.
-__device__ __forceinline__ void oe_sort_col(float* col, int stride, int m) {
-  for (int p = 0; p < m; ++p) {
-    for (int i = p & 1; i < m - 1; i += 2) {
-      float a = col[i * stride];
-      float b = col[(i + 1) * stride];
-      col[i * stride] = nan_min(a, b);
-      col[(i + 1) * stride] = nan_max(a, b);
-    }
-  }
-}
-
-// Mean of the best beta = theta - 2f window of sorted values around the
-// lower-middle median.
-__device__ __forceinline__ float bulyan_window_col(const float* col,
-                                                   int stride, int theta,
-                                                   int f) {
-  const int beta = theta - 2 * f;
-  const float med = col[((theta - 1) / 2) * stride];
-  if (beta == theta) {
-    float acc = col[0];
-    for (int r = 1; r < theta; ++r) acc = acc + col[r * stride];
-    return acc / (float)beta;
-  }
-  // pref_v[w + beta] - pref_v[w] with running prefix sums: keep the
-  // prefixes of the window start and end as they advance.
-  float pv_lo = 0.f, pd_lo = 0.f;  // prefixes at w
-  float pv_hi = 0.f, pd_hi = 0.f;  // prefixes at w + beta
-  for (int r = 0; r < beta; ++r) {
-    const float v = col[r * stride];
-    pv_hi = pv_hi + v;
-    pd_hi = pd_hi + fabsf(v - med);
-  }
-  float best_dev = pd_hi - pd_lo;
-  float best_sum = pv_hi - pv_lo;
-  const int n_win = theta - beta + 1;
-  for (int w = 1; w < n_win; ++w) {
-    const float lo = col[(w - 1) * stride];
-    pv_lo = pv_lo + lo;
-    pd_lo = pd_lo + fabsf(lo - med);
-    const float hi = col[(w + beta - 1) * stride];
-    pv_hi = pv_hi + hi;
-    pd_hi = pd_hi + fabsf(hi - med);
-    const float dev = pd_hi - pd_lo;
-    const float s = pv_hi - pv_lo;
-    if (dev < best_dev) {  // first-window tiebreak
-      best_dev = dev;
-      best_sum = s;
-    }
-  }
-  return best_sum / (float)beta;
 }
 
 // ---------------------------------------------------------------------------
@@ -282,12 +219,13 @@ __device__ __forceinline__ void shift_up_by(float (&lo)[M], int by,
 
 // Bulyan's window over theta sorted values (theta <= M, the rest +inf):
 // the mean of the best beta = theta - 2f consecutive values around the
-// lower-middle median.  The running prefix sums of the shared-memory
-// form: at sorted position r the window [r - beta + 1, r] gains s[r] and
-// loses s[r - beta].  That second index is runtime, so `lo` holds s
-// shifted up by beta (a barrel shift over beta's bits, each a
-// warp-uniform branch of register moves: shift_up_by), and
-// lo[r] = s[r - beta].
+// lower-middle median, by running prefix sums that add in the order of
+// the reference's pref_v / pref_d: at sorted position r the window
+// [r - beta + 1, r] gains s[r] and loses s[r - beta].  That second index
+// is runtime, so `lo` holds s shifted up by beta (a barrel shift over
+// beta's bits, each a warp-uniform branch of register moves:
+// shift_up_by), and lo[r] = s[r - beta].  Slots past theta (the +inf
+// padding) are never read.
 template <int M>
 __device__ __forceinline__ float bulyan_window_regs(const float (&s)[M],
                                                     int theta, int f) {
@@ -330,33 +268,38 @@ __device__ __forceinline__ float bulyan_window_regs(const float (&s)[M],
 }
 
 // ---------------------------------------------------------------------------
-// coordinate statistics (K3, and K4's cwmed and trimmed_mean modes)
+// the coordinate kernel (K2, K3, and K4's cwmed and trimmed_mean modes)
 // ---------------------------------------------------------------------------
 
 constexpr int kStatsThreads = 128;
 
 // The outputs coord_stats_kernel writes, fixed at compile time: a
 // runtime choice cost K3 and K4's coordinate modes 2-6 us on the CNN's
-// stack (PERF.md §6).
-constexpr int kMedian = 1, kTrimmed = 2;
+// stack (PERF.md §6).  kMedian and kBulyan both write loc.
+constexpr int kMedian = 1, kTrimmed = 2, kBulyan = 4;
 
 // Per coordinate of an (n, d) row-major stack: one sort of the n values,
-// then the median into med and the mean of the sorted values
-// f .. n - f - 1 into trim, as Out asks.  One coordinate per thread at a
-// time, walked with a grid stride.
+// then, as Out asks, the median (kMedian) or the mean of Bulyan's window
+// of n - 2f values (kBulyan) into loc, and the mean of the sorted values
+// f .. n - f - 1 into trim; NaN wherever the column holds a NaN.  One
+// coordinate per thread at a time, walked with a grid stride.
 template <typename T, int M, int Out>
 __global__ void __launch_bounds__(kStatsThreads)
 coord_stats_kernel(const T* __restrict__ x, int n, long long d, int f,
-                   float* __restrict__ med, float* __restrict__ trim) {
+                   float* __restrict__ loc, float* __restrict__ trim) {
+  static_assert(!((Out & kMedian) && (Out & kBulyan)),
+                "the median and Bulyan's window share loc");
   const long long step = (long long)gridDim.x * kStatsThreads;
   for (long long c = (long long)blockIdx.x * kStatsThreads + threadIdx.x;
        c < d; c += step) {
     float v[M];
     const bool nan = load_column<M>(x, n, d, c, v);
     sort_regs(v);
-    const float m = (Out & kMedian) ? median_regs(v, n) : 0.f;
+    const float m = (Out & kMedian)   ? median_regs(v, n)
+                    : (Out & kBulyan) ? bulyan_window_regs(v, n, f)
+                                      : 0.f;
     const float t = (Out & kTrimmed) ? trimmed_mean_regs(v, n, f) : 0.f;
-    if (Out & kMedian) med[c] = nan ? CUDART_NAN_F : m;
+    if (Out & (kMedian | kBulyan)) loc[c] = nan ? CUDART_NAN_F : m;
     if (Out & kTrimmed) trim[c] = nan ? CUDART_NAN_F : t;
   }
 }
@@ -364,14 +307,14 @@ coord_stats_kernel(const T* __restrict__ x, int n, long long d, int f,
 // coord_stats_kernel in the bucket of n on a persistent grid.
 template <int Out, typename T>
 static int launch_coord_stats(const T* x, int n, long long d, int f,
-                              float* med, float* trim, cudaStream_t stream) {
+                              float* loc, float* trim, cudaStream_t stream) {
   return with_bucket(n, [&](auto bucket) {
     constexpr int M = decltype(bucket)::value;
     static int resident = 0;
     const unsigned grid = persistent_grid(coord_stats_kernel<T, M, Out>,
                                           kStatsThreads, d, &resident);
     coord_stats_kernel<T, M, Out><<<grid, kStatsThreads, 0, stream>>>(
-        x, n, d, f, med, trim);
+        x, n, d, f, loc, trim);
     return (int)cudaGetLastError();
   });
 }

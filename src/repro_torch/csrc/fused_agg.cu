@@ -29,8 +29,8 @@
 // every row is loaded once (for its value or, by the reference's 0 * x
 // rule, for its finiteness), then sorted and windowed by common.cuh's
 // register form.  Three kernels: combine_single_kernel (modes 0..2),
-// combine_bulyan_kernel (3, 4) and K3's coord_stats_kernel (5, 6, one of
-// its two outputs; common.cuh).
+// combine_bulyan_kernel (3, 4) and K3's coord_stats_kernel (5, 6, its
+// median or its trimmed mean alone; common.cuh).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>

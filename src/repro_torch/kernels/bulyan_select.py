@@ -3,11 +3,14 @@
 Counterpart of ``repro/kernels/bulyan_select.py``.  Replaces the Pallas
 kernel ``_make_kernel`` (``bulyan_select.py:41``) reached through
 ``bulyan_select`` (``:51``); the CUDA source is
-``repro_torch/csrc/bulyan_select.cu``.  Per coordinate of a ``(theta, d)``
-stack: an odd-even sort of the theta values, then the mean of the
-beta = theta - 2f sorted values closest to the lower-middle median, found
-by prefix sums over the theta - beta + 1 contiguous windows with the
-first window winning ties.  It is bounded by reading the stack once
+``repro_torch/csrc/bulyan_select.cu``, which launches
+``csrc/common.cuh``'s ``coord_stats_kernel`` with its Bulyan output.  Per
+coordinate of a ``(theta, d)`` stack: a sort of the theta values (the
+reference's odd-even network here, Batcher's network in registers with a
+NaN flag in the kernel: the same sorted values), then the mean of the
+beta = theta - 2f sorted values closest to the lower-middle median,
+found by prefix sums over the theta - beta + 1 contiguous windows with
+the first window winning ties.  It is bounded by reading the stack once
 (theta * d elements) and writing d floats.
 
 ``bulyan_select`` dispatches on the tensor's device: a CPU tensor takes

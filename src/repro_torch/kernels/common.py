@@ -6,11 +6,11 @@ beta-closest-to-median window, the coordinate-wise median and the
 f-trimmed mean).  Each helper works on a list of equally shaped "rows",
 treated as axis 0 of a ``(rows, ...)`` stack, with the reference's
 arithmetic step for step.  Their CUDA twins are the device functions of
-``repro_torch/csrc/common.cuh``: K2 runs these steps on one coordinate's
-values in shared memory; K3 and K4 hold the values in registers, sort
-them with Batcher's network and a NaN flag (the same sorted values, up
-to the sign of a zero) and scale means by the rounded reciprocal of
-their count.
+``repro_torch/csrc/common.cuh``: K2, K3 and K4 hold one coordinate's
+values in registers, sort them with Batcher's network and a NaN flag
+(the same sorted values, up to the sign of a zero), run these combine
+bodies in the same order of additions, and scale means by the rounded
+reciprocal of their count.
 """
 from __future__ import annotations
 

@@ -38,6 +38,9 @@ from repro.kernels.pairwise_gram import (  # noqa: E402
     pairwise_gram as jax_gram)
 from repro_torch.kernels import fused_agg as tfused  # noqa: E402
 from repro_torch.kernels.coord_stats import coord_stats_plain  # noqa: E402
+from torch_register_form import (  # noqa: E402
+    batcher_network, bucket_of, bulyan_window_regs, close_nan, median_regs,
+    register_sort, same, trimmed_mean_regs)
 
 FP32_TOL = 1e-4
 BF16_TOL = 5e-2
@@ -55,100 +58,9 @@ def _one_thread():
 
 
 # ---------------------------------------------------------------------------
-# the register algorithm, transcribed from csrc/common.cuh and combine.cuh
+# K4's weight decode and gather, transcribed from csrc/combine.cuh and
+# fused_agg.cu (the register sort and window: torch_register_form.py)
 # ---------------------------------------------------------------------------
-
-def bucket_of(m):
-    """The size bucket of m values (``common.cuh::bucket_of``)."""
-    return (m + 7) // 8 * 8 if m <= 48 else 64
-
-
-def batcher_network(m):
-    """Batcher's odd-even merge sort over the next power of two, only the
-    comparators whose both slots are below m (``batcher_network``)."""
-    big = 1
-    while big < m:
-        big *= 2
-    net, p = [], 1
-    while p < big:
-        k = p
-        while k >= 1:
-            j = k % p
-            while j + k < big:
-                for i in range(min(k, big - j - k)):
-                    if ((i + j) // (2 * p) == (i + j + k) // (2 * p)
-                            and i + j + k < m):
-                        net.append((i + j, i + j + k))
-                j += 2 * k
-            k //= 2
-        p *= 2
-    return net
-
-
-def register_sort(rows):
-    """(m, d) values -> ((M, d) sorted with +inf padding, (d,) NaN flag):
-    fminf / fmaxf drop NaN, so the flag carries it."""
-    m, d = rows.shape
-    v = np.full((bucket_of(m), d), np.inf, dtype=_F32)
-    v[:m] = rows
-    nan = np.isnan(v).any(axis=0)
-    for a, b in batcher_network(v.shape[0]):
-        lo = np.fmin(v[a], v[b])
-        v[b] = np.fmax(v[a], v[b])
-        v[a] = lo
-    return v, nan
-
-
-def _recip(k):
-    return _F32(1) / _F32(k)
-
-
-def median_regs(s, n):
-    if n % 2:
-        return s[n // 2]
-    return (_F32(0.5) * (s[n // 2 - 1] + s[n // 2])).astype(_F32)
-
-
-def trimmed_mean_regs(s, n, f):
-    acc = s[f].copy()
-    for r in range(f + 1, n - f):
-        acc = (acc + s[r]).astype(_F32)
-    return (acc * _recip(n - 2 * f)).astype(_F32)
-
-
-def bulyan_window_regs(s, theta, f):
-    """Running prefix sums over s and over lo = s shifted up by beta."""
-    beta = theta - 2 * f
-    med = s[(theta - 1) // 2]
-    if beta == theta:
-        acc = s[0].copy()
-        for r in range(1, theta):
-            acc = (acc + s[r]).astype(_F32)
-        return (acc * _recip(beta)).astype(_F32)
-    lo = s.copy()
-    b = 0
-    while (1 << b) < s.shape[0]:
-        sh = 1 << b
-        if beta & sh:
-            lo[sh:] = lo[:-sh].copy()
-        b += 1
-    zero = np.zeros_like(med)
-    pv_lo, pd_lo, pv_hi, pd_hi = zero, zero, zero, zero
-    best_dev, best_sum = zero, zero
-    for r in range(theta):
-        pv_hi = (pv_hi + s[r]).astype(_F32)
-        pd_hi = (pd_hi + np.abs(s[r] - med)).astype(_F32)
-        if r >= beta:
-            pv_lo = (pv_lo + lo[r]).astype(_F32)
-            pd_lo = (pd_lo + np.abs(lo[r] - med)).astype(_F32)
-        if r >= beta - 1:
-            dev = (pd_hi - pd_lo).astype(_F32)
-            take = np.full(dev.shape, r == beta - 1) | (dev < best_dev)
-            best_dev = np.where(take, dev, best_dev)
-            best_sum = np.where(take, (pv_hi - pv_lo).astype(_F32),
-                                best_sum)
-    return (best_sum * _recip(beta)).astype(_F32)
-
 
 def decode_rows(w):
     """Per weight row: the picked row of a one-hot row (one nonzero entry,
@@ -311,31 +223,6 @@ def _is_general(w):
     return w is not None and ROW_GENERAL in decode_rows(w)
 
 
-def _same(got, want):
-    """Bit for bit up to the sign of zero, NaN in the same places."""
-    got = np.asarray(got, dtype=_F32)
-    want = np.asarray(want, dtype=_F32)
-    assert got.shape == want.shape
-    bad = ~((got == want) | (np.isnan(got) & np.isnan(want)))
-    assert not bad.any(), (np.flatnonzero(bad)[:5], got[bad][:5],
-                           want[bad][:5])
-
-
-def _close_nan(got, want, tol):
-    """NaN in the same places, the rest (infinities included) within tol
-    of max(1, max |finite want|)."""
-    got = np.asarray(got, dtype=np.float64)
-    want = np.asarray(want, dtype=np.float64)
-    assert got.shape == want.shape
-    assert np.array_equal(np.isnan(got), np.isnan(want))
-    inf = np.isinf(want)
-    assert np.array_equal(got[inf], want[inf])
-    ok = np.isfinite(want)
-    if ok.any():
-        scale = max(1.0, float(np.max(np.abs(want[ok]))))
-        assert float(np.max(np.abs(got[ok] - want[ok]))) <= tol * scale
-
-
 def _mode_cases():
     for mode in jfused.FUSED_MODES:
         cases = (COORD_CASES if mode in ("cwmed", "trimmed_mean")
@@ -386,9 +273,9 @@ def test_transcription_is_the_reference_bit_for_bit(mode, case, n, f):
     got = combine_transcription(x, w, f, mode)
     want = _jax_combine(x, w, f, mode)
     if _is_general(w):
-        _close_nan(got, want, 1e-5)
+        close_nan(got, want, 1e-5)
     else:
-        _same(got, want)
+        same(got, want)
 
 
 @pytest.mark.parametrize("mode,case", MODE_CASES)
@@ -399,7 +286,7 @@ def test_plain_version_is_the_reference(mode, case):
     got = tfused.fused_coordinate_plain(
         torch.from_numpy(x), None if w is None else torch.from_numpy(w), f,
         mode=mode)
-    _close_nan(got.numpy(), want, FP32_TOL)
+    close_nan(got.numpy(), want, FP32_TOL)
     if case == "-0.0 in a picked row" and mode in ("krum", "geomed"):
         assert not np.signbit(got.numpy()[COLS]).any()
         assert not np.signbit(want[COLS]).any()
@@ -422,7 +309,7 @@ def test_plain_version_is_the_reference_in_bf16(mode):
     got = tfused.fused_coordinate_plain(
         torch.from_numpy(x).to(torch.bfloat16),
         None if w is None else torch.from_numpy(w), 9, mode=mode)
-    _close_nan(got.numpy(), want, BF16_TOL)
+    close_nan(got.numpy(), want, BF16_TOL)
 
 
 @pytest.mark.parametrize("n,f", [(3, 1), (8, 3), (9, 2), (33, 5), (39, 9),
@@ -435,11 +322,11 @@ def test_coord_stats_transcription_and_plain_are_the_reference(n, f):
     x[1:3, 13] = -np.inf
     wm, wt = jax_coord_stats(jnp.asarray(x), f, interpret=True)
     gm, gt = coord_stats_transcription(x, f)
-    _same(gm, wm)
-    _same(gt, wt)
+    same(gm, wm)
+    same(gt, wt)
     pm, pt = coord_stats_plain(torch.from_numpy(x), f)
-    _close_nan(pm.numpy(), np.array(wm), FP32_TOL)
-    _close_nan(pt.numpy(), np.array(wt), FP32_TOL)
+    close_nan(pm.numpy(), np.array(wm), FP32_TOL)
+    close_nan(pt.numpy(), np.array(wt), FP32_TOL)
     assert np.isnan(np.array(wm)[7]) and np.isnan(np.array(wt)[7])
 
 
@@ -459,11 +346,11 @@ def test_bulyan_window_at_every_theta_bucket(n, f):
     x[picks[-1], 6] = np.inf
     x[picks[1], 8] = -0.0
     want = _jax_combine(x, w, f, "bulyan-krum")
-    _same(combine_transcription(x, w, f, "bulyan-krum"), want)
+    same(combine_transcription(x, w, f, "bulyan-krum"), want)
     got = tfused.fused_coordinate_plain(torch.from_numpy(x),
                                         torch.from_numpy(w), f,
                                         mode="bulyan-krum")
-    _close_nan(got.numpy(), want, FP32_TOL)
+    close_nan(got.numpy(), want, FP32_TOL)
 
 
 def test_decode_rows():

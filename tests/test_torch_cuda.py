@@ -343,6 +343,53 @@ def test_bulyan_combine_at_every_theta_bucket(card, dtype, tol):
                 assert _rel(got, want) <= tol, (n, f, mode)
 
 
+#: K2's theta in every size bucket and at its edges
+K2_THETAS = (3, 8, 9, 16, 17, 21, 24, 25, 40, 48, 49, 64)
+#: K2's poisoned columns: one NaN, one +inf, one -inf, a +inf and a -inf,
+#: all -0.0, +-0.0 mixed
+K2_NAN, K2_POS, K2_NEG, K2_BOTH, K2_NEG_ZERO, K2_ZEROS = range(6)
+
+
+def _k2_stack(theta, d, dtype, card, seed):
+    """Gradient-like rows, the right half rounded to quarters (ties), and
+    K2's poisoned columns in rows picked at random."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((theta, d), generator=g) * 0.5 + 1.0
+    x[:, d // 2:] = torch.round(x[:, d // 2:] * 4) / 4
+    rows = torch.randperm(theta, generator=g)
+    x[rows[0], K2_NAN] = float("nan")
+    x[rows[0], K2_POS] = float("inf")
+    x[rows[0], K2_NEG] = -float("inf")
+    x[rows[0], K2_BOTH] = float("inf")
+    x[rows[1], K2_BOTH] = -float("inf")
+    x[:, K2_NEG_ZERO] = -0.0
+    x[:, K2_ZEROS] = torch.where(torch.rand(theta, generator=g) < 0.5,
+                                 -0.0, 0.0)
+    return x.to(device=card, dtype=dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_bulyan_select_at_every_theta_bucket_on_non_finite_columns(
+        card, dtype, tol):
+    """K2 in registers: theta in every size bucket and at its edges, every
+    f that beta >= 1 allows, NaN and +-inf in the plain version's places
+    (an inf is not a NaN here: a +inf leaves the window once f >= 1, a
+    -inf gives -inf)."""
+    for theta in K2_THETAS:
+        for f in range((theta - 1) // 2 + 1):
+            x = _k2_stack(theta, 257, dtype, card, seed=theta * 64 + f)
+            got = bulyan_select(x, f)
+            want = bulyan_select_plain(x, f)
+            assert got.dtype == torch.float32 and got.shape == (257,)
+            assert _close_same_nan(got, want, tol), (theta, f)
+            assert bool(torch.isnan(got[K2_NAN])), (theta, f)
+            assert float(got[K2_NEG]) == -float("inf"), (theta, f)
+            assert (bool(torch.isfinite(got[K2_POS])) if f
+                    else float(got[K2_POS]) == float("inf")), (theta, f)
+            assert float(got[K2_NEG_ZERO]) == 0.0, (theta, f)
+
+
 def test_k4_and_k3_take_unaligned_rows(card):
     """A contiguous stack that starts one row into a bigger one (rows
     only 4-byte aligned)."""
