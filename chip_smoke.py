@@ -49,6 +49,22 @@ Phases, in order; any failure exits nonzero before the last line:
    1e-4.
    Final eval accuracy of clean ``average``, attacked ``fused-krum`` and
    attacked ``fused-bulyan-krum`` on the MLP, for a reader.
+3b. Stateful and asynchronous training, same attack and optimizer:
+   ``AsyncByzantineTrainer`` (``fixed`` schedule, tau = 2) with
+   ``stale-fused-bulyan-krum`` (10 MLP steps, 3 CNN steps) and
+   ``reputation-fused-bulyan-krum`` (10 MLP steps), ``ByzantineTrainer``
+   with ``buffered-fused-cwmed`` (window 4, 10 MLP steps), and the
+   paper's Fig. 2 / 3 Brute setting (``brute``, 6 + 5 workers,
+   ``omniscient_linf`` aimed at Brute; 10 MLP steps, 3 CNN steps).  Step
+   0's aggregate must match the same composite over the unfused rule on
+   the card (Brute: its CPU result) at 1e-4 of its largest entry, with
+   equal ``selected``, and the first update must be SGD's on it; the
+   launch counters, reset before each run, must read exactly the
+   launches per step the rule implies (``STEP_LAUNCHES``).  Then three
+   identities, bit for bit: uniform reputation and uniform staleness
+   reproduce ``fused-bulyan-krum``, and the asynchronous trainer at
+   tau = 0 reproduces the synchronous one over 3 steps.  ms per step of
+   each run, with the card's name and power limit.
 4. The tree engine at full width: the Fig. 4 submissions of both models
    as per-leaf trees (30 ``vmap(grad)`` gradients, then the port's
    ``inject_byzantine`` with ``omniscient_linf``), aggregated by
@@ -999,6 +1015,165 @@ def mlp_accuracies(torch, rt, bulyan_trainer):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: stateful and asynchronous training
+# ---------------------------------------------------------------------------
+
+#: the paper's Fig. 2 / 3 attack on Brute (benchmarks/fig2_mnist_attack.py)
+BRUTE_LINF = (("gar_name", "brute"),) + LINF[1:]
+N_BRUTE, F_BRUTE = 11, 5
+#: kernel launches per step of each phase-3b rule, by its fused base: K5
+#: counts the K1, select and K4 launches it made; Brute is plain PyTorch
+STEP_LAUNCHES = {
+    "bulyan-krum": {"pairwise_gram_partial": 1, "select_weights": 1,
+                    "fused_coordinate": 1, "fused_aggregate": 3},
+    "cwmed": {"fused_coordinate": 1, "fused_aggregate": 1},
+    "brute": {},
+}
+#: (trainer, model, rule, n, f, steps, attack kwargs, spec kwargs)
+STATEFUL_RUNS = (
+    ("async", "mnist", "stale-fused-bulyan-krum", N_MAIN, F_MAIN, 10, LINF,
+     {"async_tau": 2}),
+    ("async", "mnist", "reputation-fused-bulyan-krum", N_MAIN, F_MAIN, 10,
+     LINF, {"async_tau": 2}),
+    ("async", "cifar", "stale-fused-bulyan-krum", N_MAIN, F_MAIN, 3, LINF,
+     {"async_tau": 2}),
+    ("sync", "mnist", "buffered-fused-cwmed", N_MAIN, F_MAIN, 10, LINF,
+     {"history_window": 4}),
+    ("sync", "mnist", "brute", N_BRUTE, F_BRUTE, 10, BRUTE_LINF, {}),
+    ("sync", "cifar", "brute", N_BRUTE, F_BRUTE, 3, BRUTE_LINF, {}),
+)
+
+
+def fused_base(gar: str) -> str:
+    """The fused base under a rule's wrapper prefixes, or the rule."""
+    return gar.split("fused-", 1)[1] if "fused-" in gar else gar
+
+
+def step0_stack(torch, rt, spec, trainer, loss, batcher):
+    x0, y0 = batcher.batch(0)
+    x0 = torch.as_tensor(x0, device="cuda")
+    y0 = torch.as_tensor(y0, device="cuda").long()
+    return rt["trainer"].byzantine_stack(loss, spec, trainer.params, x0, y0)
+
+
+def run_stateful(torch, rt, mode, kind, gar, n, f, steps, akw, spec_kw):
+    """One phase-3b run: step 0's aggregate against the unfused rule (or,
+    for Brute, its CPU result), then ``steps`` counted and timed steps."""
+    import dataclasses
+    tr, build = rt["trainer"], rt["build"]
+    params, loss = model_and_loss(rt, kind)
+    spec = rt["AggSpec"](n_workers=n, f=f, gar=gar,
+                         attack="omniscient_linf", attack_kwargs=akw,
+                         **spec_kw)
+    opt = rt["get_optimizer"]("sgd", rt["fading_lr"](ETA0, 1e4))
+    batcher = rt["ByzantineBatcher"](kind, n - f, 16, seed=1, noise=0.5)
+    cls = tr.AsyncByzantineTrainer if mode == "async" else tr.ByzantineTrainer
+    trainer = cls(loss, params, opt, spec, seed=1, device="cuda")
+    what = f"3b {kind} {mode} {gar}"
+
+    full, _, ctx = step0_stack(torch, rt, spec, trainer, loss, batcher)
+    rule = spec.rule()
+    if rule.stateful:
+        state = trainer.agg_state
+        if mode == "async":   # step 0 delivers every worker
+            state = state._replace(bus=rt["update_bus"](
+                state.bus, full, 0, torch.ones(n, dtype=torch.bool,
+                                               device="cuda")))
+        plain = dataclasses.replace(spec, gar=gar.replace("fused-", ""))
+        got, _ = rule.dense_fn(full, f, state)
+        want, _ = plain.rule().dense_fn(full, f, state)
+        against = plain.gar
+    else:
+        got = rule.dense_fn(full, f)
+        want = rule.dense_fn(full.cpu(), f)
+        against = "its CPU result"
+    err, rel, scale = scaled_err(got.gradient,
+                                 want.gradient.to(got.gradient.device))
+    expect(rel <= FP32_TOL, f"{what} step-0 aggregate vs {against}: rel "
+           f"err {rel:.3e} (max |want| {scale:.3e})")
+    expect(torch.equal(got.selected.cpu(), want.selected.cpu()),
+           f"{what} step-0 selection differs from {against}")
+    step0 = rt["unflatten"](want.gradient.to("cuda"), ctx)
+    expected = {k: v - ETA0 * step0[k] for k, v in trainer.params.items()}
+    print(f"  {what}: step-0 aggregate vs {against}: max abs err "
+          f"{err:.3e}, over max |want| {scale:.3e}: {rel:.3e}; selected "
+          f"equal", flush=True)
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    step_ms = []
+    for t in range(steps):
+        t0 = time.perf_counter()
+        trainer.run(batcher, 1, start_step=t)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        h = trainer.history[-1]
+        expect(math.isfinite(h["loss"]), f"{what}: loss not finite")
+        if t == 0:
+            for k, v in expected.items():
+                e, r = rel_err(trainer.params[k], v)
+                expect(r <= FP32_TOL, f"{what} step-0 update of {k}: {r:.3e}")
+    counts = dict(build.LAUNCHES)
+    per_step = STEP_LAUNCHES[fused_base(gar)]
+    for name in REPLACES:
+        want_n = steps * per_step.get(name, 0)
+        expect(counts[name] == want_n, f"{what}: {name} launched "
+               f"{counts[name]} times in {steps} steps, expected {want_n}")
+    for k, v in trainer.params.items():
+        expect(bool(torch.isfinite(v).all()), f"{what}: param {k} not finite")
+    last = trainer.history[-1]
+    extra = "".join(f" {k} {last[k]:.0f}" for k in ("staleness_max",
+                                                    "delivered") if k in last)
+    print(f"  ok  {what}: {steps} steps, loss {last['loss']:.4f}, "
+          f"byz_weight {last['byz_weight']:.2f}{extra}; launches per step "
+          f"{per_step or 'none'}; ms per step "
+          f"{[round(x, 3) for x in step_ms]}", flush=True)
+    return {"what": what, "launches": counts, "step_ms": step_ms,
+            "full": full}
+
+
+def phase_identities(torch, rt, mlp_stack):
+    """The reference's bitwise identities on the card, over the fused
+    kernels: uniform reputation and uniform staleness reproduce
+    ``fused-bulyan-krum``, and the asynchronous trainer at tau = 0
+    reproduces the synchronous one."""
+    resolve, init_state = rt["resolve_rule"], rt["init_state"]
+    base = resolve("fused-bulyan-krum").dense_fn(mlp_stack, F_MAIN)
+    rep = resolve("reputation-fused-bulyan-krum")
+    got, _ = rep.dense_fn(mlp_stack, F_MAIN, init_state(rep, mlp_stack))
+    stale = resolve("stale-fused-bulyan-krum")
+    state = init_state(stale, mlp_stack)
+    state = state._replace(step=5, bus=state.bus._replace(
+        versions=torch.full_like(state.bus.versions, 3)))
+    got_s, _ = stale.dense_fn(mlp_stack, F_MAIN, state)
+    for label, res in (("uniform reputation", got),
+                       ("uniform staleness", got_s)):
+        expect(all(torch.equal(a, b) for a, b in zip(res, base)),
+               f"{label} is not fused-bulyan-krum bit for bit")
+        print(f"  ok  {label} == fused-bulyan-krum, bit for bit",
+              flush=True)
+
+    tr = rt["trainer"]
+    params, loss = model_and_loss(rt, "mnist")
+    trainers = []
+    for cls in (tr.AsyncByzantineTrainer, tr.ByzantineTrainer):
+        spec = rt["AggSpec"](n_workers=N_MAIN, f=F_MAIN,
+                             gar="stale-fused-bulyan-krum",
+                             attack="omniscient_linf", attack_kwargs=LINF,
+                             async_tau=0)
+        trainer = cls(loss, params, rt["get_optimizer"](
+            "sgd", rt["fading_lr"](ETA0, 1e4)), spec, seed=1, device="cuda")
+        trainer.run(rt["ByzantineBatcher"]("mnist", N_MAIN - F_MAIN, 16,
+                                           seed=1, noise=0.5), 3)
+        trainers.append(trainer)
+    a, s = trainers
+    expect(all(torch.equal(a.params[k], s.params[k]) for k in a.params),
+           "async tau = 0 is not the synchronous step bit for bit")
+    print("  ok  AsyncByzantineTrainer at tau = 0 == ByzantineTrainer, "
+          "3 steps, parameters bit for bit", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the tree engine
 # ---------------------------------------------------------------------------
 
@@ -1247,6 +1422,8 @@ def main() -> int:
 
     from repro_torch.agg.registry import resolve_rule
     from repro_torch.agg.specs import AggSpec
+    from repro_torch.agg.state import init_state
+    from repro_torch.dist.async_train import update_bus
     from repro_torch.core.bulyan import select_indices_from_dists
     from repro_torch.core.pytree import (stack_flatten, tree_leaves,
                                          unflatten)
@@ -1272,7 +1449,8 @@ def main() -> int:
               distributed_aggregate=distributed_aggregate,
               inject_byzantine=inject_byzantine, ops=kernel_ops,
               select_indices_from_dists=select_indices_from_dists,
-              coord_stats=coord_stats.coord_stats, probes=probes)
+              coord_stats=coord_stats.coord_stats, probes=probes,
+              init_state=init_state, update_bus=update_bus)
     ops = {"fused_agg": fused_agg, "pairwise_gram": pairwise_gram,
            "bulyan_select": bulyan_select, "coord_stats": coord_stats}
 
@@ -1308,6 +1486,15 @@ def main() -> int:
     accs = mlp_accuracies(torch, rt, mlp_trainer)
     for label, acc in accs.items():
         print(f"  MLP eval accuracy after 40 steps, {label}: {acc:.4f}")
+
+    print("== phase 3b: stateful and async training", flush=True)
+    stateful_runs = [run_stateful(torch, rt, *run) for run in STATEFUL_RUNS]
+    phase_identities(torch, rt, stateful_runs[0]["full"])
+    for r in stateful_runs:
+        print(f"  {r['what']}: median "
+              f"{statistics.median(r['step_ms']):.3f} ms per step "
+              f"({len(r['step_ms'])} steps; {smi})", flush=True)
+        del r["full"]
 
     print("== phase 4: the tree engine (Fig. 4 trees, 3 backends)",
           flush=True)

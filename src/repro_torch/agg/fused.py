@@ -15,7 +15,8 @@ aggregation kernels (their plain versions for CPU tensors):
 
 :func:`fused_name` maps a rule name onto its ``fused-`` counterpart,
 which is how ``distance_backend="fused"`` reroutes rules inside the
-engine.
+engine; wrapper prefixes are kept (``"stale-krum" ->
+"stale-fused-krum"``).
 """
 from __future__ import annotations
 
@@ -23,8 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.agg.registry import (_NOT_PORTED_PREFIXES, AggregatorRule,
-                                     TreeAgg, resolve_rule)
+from repro_torch.agg.registry import AggregatorRule, TreeAgg, resolve_rule
 from repro_torch.core.types import AggResult
 from repro_torch.kernels.fused_agg import (COORD_MODES, FUSED_MODES,
                                            fused_aggregate, fused_coordinate,
@@ -36,24 +36,30 @@ __all__ = ["FUSED_BASES", "fused_name", "make_fused"]
 #: base GAR names with a fused lowering (== fused_agg.FUSED_MODES)
 FUSED_BASES = FUSED_MODES
 
+#: stateful wrapper prefixes fused_name recurses through, longest first
+#: so "stale-exp-" is not split as "stale-" + "exp-..."
+_WRAPPER_PREFIXES = ("stale-exp-", "stale-inv-", "stale-", "buffered-",
+                     "reputation-", "obs-")
+
 
 def fused_name(gar: str) -> Optional[str]:
     """Map a GAR name to its fused counterpart, or ``None``.
 
     Args:
-      gar: a base rule name or an already-fused name (idempotent).
+      gar: a base rule, a wrapper composite (``stale-``, ``buffered-``,
+        ``reputation-``, ``obs-``) or an already-fused name (idempotent).
 
     Returns:
-      ``"fused-<gar>"`` when the base has a fused lowering, ``gar``
-      itself when it is already fused, ``None`` otherwise (``average``,
-      ...).  A stateful wrapper prefix (``stale-``, ``buffered-``,
-      ``reputation-``, ``obs-``) raises ``NotImplementedError``, as the
-      registry does for those families.
+      The ``fused-``-prefixed name with the wrapper prefixes kept
+      (``"stale-krum" -> "stale-fused-krum"``), or ``None`` when the
+      base has no fused lowering (``brute``, ``average``, ...).
     """
     if gar.startswith("fused-"):
         return gar
-    if gar.startswith(_NOT_PORTED_PREFIXES):
-        raise NotImplementedError(f"rule {gar!r} is not ported yet")
+    for prefix in _WRAPPER_PREFIXES:
+        if gar.startswith(prefix):
+            inner = fused_name(gar[len(prefix):])
+            return None if inner is None else prefix + inner
     return f"fused-{gar}" if gar in FUSED_BASES else None
 
 

@@ -1,13 +1,13 @@
 """The Byzantine-protocol spec and the shared quorum check.
 
 Counterpart of ``repro/agg/specs.py``, carrying the fields the flat
-synchronous trainer and the tree engine (``repro_torch.dist.robust``)
-read.  Message texts are the reference's.
+trainers (synchronous and asynchronous) and the tree engine
+(``repro_torch.dist.robust``) read.  Message texts are the reference's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 from repro_torch.agg.registry import resolve_rule
 
@@ -22,10 +22,24 @@ class AggSpec:
     the aggregation rule defends against (``declared_f`` overrides the
     latter).  ``agg_dtype`` and ``distance_backend`` are the tree
     engine's accumulation dtype and distance backend, read by
-    :meth:`aggregate_tree` (the flat trainer aggregates one stacked
-    matrix and reads neither).  The
-    reference's fields for the stateful, asynchronous, reputation,
-    telemetry and sharded paths come with those paths.
+    :meth:`aggregate_tree` (the flat trainers aggregate one stacked
+    matrix and read neither).
+
+    The stateful and asynchronous fields, as in the reference:
+      history_window: window of ``buffered-*`` rules.
+      seed: seed of the ``random`` delay schedule.
+      async_tau / async_schedule: the asynchronous trainer's bounded
+        staleness (an int, or one bound per worker) and delay schedule
+        (``"fixed"`` staggered round-robin | ``"random"``).
+        ``async_tau=0`` reproduces the synchronous step exactly.
+      rep_lr / rep_decay: the ``reputation-*`` schedule (``None`` takes
+        the defaults); a set ``rep_lr`` also scales the update by
+        ``step_size_multiplier``.
+      aux_batch: optional ``(inputs, labels)`` clean batch; when set and
+        the rule carries reputation, the trainers score agreement
+        against its gradient instead of the aggregate.  Excluded from
+        equality.
+    The telemetry, serving and sharded fields come with those paths.
     """
 
     f: int
@@ -36,6 +50,13 @@ class AggSpec:
     declared_f: Optional[int] = None   # f the master *assumes* (>= actual)
     agg_dtype: str = "native"          # native | float32 | bfloat16
     distance_backend: str = "auto"     # auto | xla | pallas | fused
+    history_window: int = 4            # buffered-* window length
+    seed: int = 0
+    async_tau: "int | tuple" = 0       # bounded staleness (scalar or per-worker)
+    async_schedule: str = "fixed"      # fixed | random
+    rep_lr: Optional[float] = None     # reputation-* EMA rate (None=default)
+    rep_decay: Optional[float] = None  # reputation-* forgetting factor
+    aux_batch: Any = dataclasses.field(default=None, compare=False)
 
     @property
     def n_honest(self) -> int:
@@ -53,41 +74,56 @@ class AggSpec:
         """Resolve this spec's GAR through the registry.
 
         Returns:
-          The resolved ``AggregatorRule``.
+          The resolved ``AggregatorRule`` (with this spec's
+          ``history_window`` and reputation schedule).
         """
-        return resolve_rule(self.gar)
+        return resolve_rule(self.gar, history_window=self.history_window,
+                            rep_lr=self.rep_lr, rep_decay=self.rep_decay)
 
-    def aggregate_tree(self, tree, *, window: Optional[int] = None):
+    def aggregate_tree(self, tree, *, window: Optional[int] = None,
+                       state=None):
         """Aggregate a worker-stacked gradient tree under this spec.
 
         The call the reference's distributed trainer makes:
         ``distributed_aggregate`` with this spec's ``gar``, declared
-        ``f``, ``agg_dtype`` and ``distance_backend``.
+        ``f``, ``agg_dtype``, ``distance_backend`` and stateful-rule
+        parameters.
 
         Args:
           tree: dict (or list, or one tensor) of ``(n, *dims)`` leaves.
           window: coordinate-phase window of the bulyan rules.
+          state: carried ``AggState`` of a stateful rule.
 
         Returns:
-          ``(aggregated tree, DistAggResult)``.
+          ``(aggregated tree, DistAggResult)``, plus the new state for a
+          stateful rule.
         """
         from repro_torch.dist.robust import distributed_aggregate
         return distributed_aggregate(
             tree, self.f_declared, self.gar, agg_dtype=self.agg_dtype,
-            window=window, distance_backend=self.distance_backend)
+            window=window, distance_backend=self.distance_backend,
+            state=state, history_window=self.history_window,
+            rep_lr=self.rep_lr, rep_decay=self.rep_decay)
 
-    def validate(self) -> None:
-        """Quorum-check this spec against ``n_workers``.
+    def validate(self, n_workers: Optional[int] = None, *,
+                 distributed: bool = False) -> None:
+        """Quorum-check this spec.
+
+        Args:
+          n_workers: worker count to check (``None``: ``n_workers``).
+          distributed: also require a tree-path implementation.
 
         Returns:
           None.  Raises ``KeyError`` / ``ValueError`` with the
           reference's texts.
         """
-        if self.n_workers is None:
+        n = self.n_workers if n_workers is None else n_workers
+        if n is None:
             raise ValueError(
                 "validate() needs n_workers — set it on the spec or pass "
                 "it explicitly")
-        check_quorum(self.gar, self.n_workers, self.f_declared)
+        check_quorum(self.gar, n, self.f_declared, distributed=distributed,
+                     history_window=self.history_window)
 
 
 def check_quorum(gar: str, n: int, f: int, *, distributed: bool = False,
@@ -101,24 +137,19 @@ def check_quorum(gar: str, n: int, f: int, *, distributed: bool = False,
       distributed: when True, additionally require a tree-path
         implementation (distributed Bulyan supports only the
         distance-only bases krum/geomed), raising ``KeyError``.
-      history_window: the ``buffered-*`` window of the reference's
-        resolver; those rules are not ported, so it changes nothing yet.
+      history_window: passed to ``resolve_rule`` for ``buffered-*``
+        rules.
 
     Returns:
       None.  Raises ``ValueError`` as ``"{gar} requires n >= {need} for
       f={f}, got n={n}"`` when the quorum is violated.
     """
-    del history_window
-    # the port's resolver refuses Bulyan over other bases outright (not
-    # ported), so the reference's distributed-path error comes first
-    is_bulyan = gar.startswith("bulyan") or "-bulyan" in gar
-    if distributed and is_bulyan and gar.rsplit("-", 1)[-1] not in (
-            "bulyan", "krum", "geomed"):
-        raise KeyError(
-            f"distributed bulyan needs a distance-only base "
-            f"(krum/geomed), got {gar!r}")
-    rule = resolve_rule(gar)
+    rule = resolve_rule(gar, history_window=history_window)
     if distributed and rule.tree_fn is None:
+        if gar.startswith("bulyan") or "-bulyan" in gar:
+            raise KeyError(
+                f"distributed bulyan needs a distance-only base "
+                f"(krum/geomed), got {gar!r}")
         raise KeyError(f"{gar!r} has no distributed (tree) implementation")
     need = rule.min_n(f)
     if n < need:

@@ -7,8 +7,8 @@ worker axis, a distance-matrix closure over the configured backend, the
 windowed coordinate phase) and returns a
 :class:`~repro_torch.agg.registry.TreeAgg`.  Registered onto the dense
 rules of ``repro_torch.core.gars``; the Bulyan family is attached by the
-resolver, since its base is parametric.  ``brute`` waits with its dense
-side (ROADMAP item 2).
+resolver, since its base is parametric.  The stateful rules (buffered
+history, momentum centered clipping) live in ``repro_torch.agg.buffered``.
 """
 from __future__ import annotations
 
@@ -68,11 +68,16 @@ def _geomed_tree(ctx: TreeContext) -> TreeAgg:
 def _multikrum_tree(ctx: TreeContext) -> TreeAgg:
     scores = gars.krum_scores(ctx.dists(), _everyone(ctx), ctx.f, ctx.n)
     m = max(1, ctx.n - ctx.f - 2)
-    # jax.lax.top_k breaks ties toward the lower index; torch.topk makes
-    # no such promise, a stable argsort does
-    top = torch.argsort(scores, stable=True)[:m]
+    top = gars.top_k_total_order(-scores, m)
     selected = torch.zeros((ctx.n,), dtype=ctx.cdt, device=scores.device)
     selected[top] = 1.0 / m
+    return TreeAgg(ctx.weighted_sum(selected), selected, scores)
+
+
+@register_tree_impl("brute")
+def _brute_tree(ctx: TreeContext) -> TreeAgg:
+    diam = gars.brute_subset_diameters(ctx.dists(), ctx.n, ctx.f)
+    selected, scores = gars._brute_weights(diam, ctx.n, ctx.f, ctx.cdt)
     return TreeAgg(ctx.weighted_sum(selected), selected, scores)
 
 

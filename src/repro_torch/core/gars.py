@@ -1,25 +1,31 @@
 """Gradient aggregation rules (counterpart of ``repro/core/gars.py``).
 
-Ported here: ``average``, ``krum``, ``multikrum``, ``geomed``, ``cwmed``
-and ``trimmed_mean``, with the ``*_scores`` / ``*_select`` helpers that
-Bulyan's recursion consumes.  ``brute`` and ``centered_clip`` wait for a
-later slice.  Every rule takes ``(grads: (n, d), f)`` and returns an
+Every rule of the reference: the paper's ``average``, ``krum``,
+``geomed`` (the Medoid) and ``brute`` (§2.3), and the extra baselines
+``multikrum``, ``cwmed``, ``trimmed_mean`` and ``centered_clip``, with
+the ``*_scores`` / ``*_select`` helpers that Bulyan's recursion consumes.
+Every rule takes ``(grads: (n, d), f)`` and returns an
 :class:`AggResult`; ties resolve to the smallest index, as in the
-reference (``torch.argmin`` returns the first minimum, and orderings use
-``torch.argsort(..., stable=True)``).
+reference (``torch.argmin`` returns the first minimum, orderings use
+``torch.argsort(..., stable=True)``, and :func:`top_k_total_order` ranks
+as ``jax.lax.top_k`` does).
 """
 from __future__ import annotations
 
-from typing import Optional
+import itertools
+from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.agg.registry import register_rule, resolve_rule
+from repro_torch.agg.registry import RULES, register_rule, resolve_rule
+from repro_torch.agg.registry import quorum as _registry_quorum
 from repro_torch.core.types import AggResult
 
-__all__ = ["average", "cwmed", "geomed", "geomed_scores", "geomed_select",
-           "get_gar", "krum", "krum_scores", "krum_select", "multikrum",
-           "pairwise_sq_dists", "trimmed_mean"]
+__all__ = ["REGISTRY", "average", "brute", "brute_subset_diameters",
+           "centered_clip", "cwmed", "geomed", "geomed_scores",
+           "geomed_select", "get_gar", "krum", "krum_scores", "krum_select",
+           "multikrum", "pairwise_sq_dists", "quorum", "top_k_total_order",
+           "trimmed_mean"]
 
 _INF = float("inf")
 
@@ -120,6 +126,52 @@ def geomed_select(dist2: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.argmin(geomed_scores(dist2, mask))
 
 
+def top_k_total_order(values: torch.Tensor, m: int) -> torch.Tensor:
+    """Indices of the ``m`` largest values, ranked as ``jax.lax.top_k``.
+
+    ``top_k`` orders floats by XLA's total order, in which the sign bit
+    counts for NaN too: ``-NaN < -inf < ... < -0.0 < +0.0 < ... < +inf <
+    +NaN``.  Equal keys go to the lower index.  ``torch.sort`` and
+    ``torch.argsort`` would put every NaN last instead.
+
+    Args:
+      values: ``(n,)`` floating-point keys.
+      m: how many indices to return.
+
+    Returns:
+      ``(m,)`` int64 indices, largest key first.
+    """
+    bits = values.to(torch.float32).view(torch.int32).to(torch.int64)
+    # a negative float's bits order backwards: flip all but the sign bit
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return torch.argsort(-key, stable=True)[:m]
+
+
+def _subsets(n: int, size: int) -> List[Tuple[int, ...]]:
+    return list(itertools.combinations(range(n), size))
+
+
+def brute_subset_diameters(dist2: torch.Tensor, n: int,
+                           f: int) -> torch.Tensor:
+    """Diameter (max pairwise squared distance) of every (n-f)-subset.
+
+    Enumerated on the host, as in the reference: Brute is only practical
+    for small n (paper §2.3.1).
+
+    Args:
+      dist2: ``(n, n)`` squared distances.
+      n: worker count.
+      f: Byzantine bound.
+
+    Returns:
+      ``(S,)`` diameters, one per subset of ``itertools.combinations``
+      order.
+    """
+    idx = torch.tensor(_subsets(n, n - f), device=dist2.device)
+    sub = dist2[idx[:, :, None], idx[:, None, :]]
+    return torch.amax(sub.reshape(idx.shape[0], -1), dim=1)
+
+
 def _one_hot(i: torch.Tensor, n: int, like: torch.Tensor) -> torch.Tensor:
     return (torch.arange(n, device=like.device) == i).to(like.dtype)
 
@@ -163,7 +215,7 @@ def multikrum(grads: torch.Tensor, f: int,
     if m is None:
         m = max(1, n - f - 2)
     scores = krum_scores(pairwise_sq_dists(grads), _all(n, grads), f, n)
-    top = torch.argsort(scores, stable=True)[:m]
+    top = top_k_total_order(-scores, m)
     sel = torch.zeros((n,), dtype=grads.dtype, device=grads.device)
     sel[top] = 1.0 / m
     return AggResult(sel @ grads, sel, scores)
@@ -178,6 +230,36 @@ def geomed(grads: torch.Tensor, f: int = 0) -> AggResult:
     scores = geomed_scores(pairwise_sq_dists(grads), _all(n, grads))
     i = torch.argmin(scores)
     return AggResult(grads[i], _one_hot(i, n, grads), scores)
+
+
+@register_rule("brute", min_n=lambda f: 2 * f + 1,
+               invariants=("finite", "hull", "convex"),
+               doc="min-diameter subset average (small n only)")
+def brute(grads: torch.Tensor, f: int) -> AggResult:
+    """Brute (paper §2.3.1): average of the most clumped (n-f)-subset,
+    the one whose largest pairwise distance is smallest."""
+    n = grads.shape[0]
+    if n < 2 * f + 1:
+        raise ValueError(f"brute requires n >= 2f+1, got n={n}, f={f}")
+    diam = brute_subset_diameters(pairwise_sq_dists(grads), n, f)
+    sel, scores = _brute_weights(diam, n, f, grads.dtype)
+    return AggResult(sel @ grads, sel, scores)
+
+
+def _brute_weights(diam: torch.Tensor, n: int, f: int, dtype):
+    """Brute's ``(n,)`` weights (1/(n-f) on the best subset) and
+    per-worker scores (the diameter of the best subset holding the
+    worker)."""
+    idx = torch.tensor(_subsets(n, n - f), device=diam.device)
+    chosen = idx[torch.argmin(diam)]
+    sel = torch.zeros((n,), dtype=dtype, device=diam.device)
+    sel[chosen] = 1.0 / (n - f)
+    member = torch.zeros((idx.shape[0], n), dtype=torch.bool,
+                         device=diam.device)
+    member[torch.arange(idx.shape[0], device=diam.device)[:, None],
+           idx] = True
+    scores = torch.amin(torch.where(member, diam[:, None], _INF), dim=0)
+    return sel, scores
 
 
 def _median0(grads: torch.Tensor) -> torch.Tensor:
@@ -213,6 +295,29 @@ def trimmed_mean(grads: torch.Tensor, f: int) -> AggResult:
     return AggResult(torch.mean(s[f:n - f], dim=0), w, torch.zeros_like(w))
 
 
+@register_rule("centered_clip", min_n=lambda f: 2 * f + 1,
+               invariants=("finite", "hull"),
+               doc="iterative centered clipping")
+def centered_clip(grads: torch.Tensor, f: int, tau: float = 10.0,
+                  iters: int = 3) -> AggResult:
+    """Centered clipping (Karimireddy et al., 2021): clip each worker's
+    deviation from a running center to radius ``tau``, ``iters`` times,
+    starting from the mean."""
+    n = grads.shape[0]
+    v = torch.mean(grads, dim=0)
+    for _ in range(iters):
+        delta = grads - v[None, :]
+        norm = torch.linalg.vector_norm(delta, dim=1, keepdim=True)
+        scale = torch.clamp_max(tau / torch.clamp_min(norm, 1e-12), 1.0)
+        v = v + torch.mean(delta * scale, dim=0)
+    w = torch.full((n,), 1.0 / n, dtype=grads.dtype, device=grads.device)
+    return AggResult(v, w, torch.zeros_like(w))
+
+
+#: the reference's historic alias of the live rule table
+REGISTRY = RULES
+
+
 def get_gar(name: str):
     """Resolve a GAR's dense function by name through the registry.
 
@@ -223,3 +328,16 @@ def get_gar(name: str):
       The ``(grads, f) -> AggResult`` callable.
     """
     return resolve_rule(name).dense_fn
+
+
+def quorum(name: str, f: int) -> int:
+    """Minimal n for a rule at a given f (delegates to the registry).
+
+    Args:
+      name: any name ``resolve_rule`` accepts.
+      f: Byzantine bound.
+
+    Returns:
+      The smallest n the rule supports.
+    """
+    return _registry_quorum(name, f)

@@ -4,7 +4,8 @@
 The reference flattens pytrees in JAX's tree order, which sorts dict
 keys.  The port holds parameters as dicts of tensors and flattens them in
 the same sorted-key order, so coordinate ``i`` of a flat vector names the
-same parameter entry in both packages.
+same parameter entry in both packages.  :func:`aggregate_pytree` applies
+a registered rule to a worker-stacked dict.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ from typing import Any, List, Tuple
 
 import torch
 
-__all__ = ["stack_flatten", "tree_leaves", "tree_unflatten", "unflatten"]
+__all__ = ["aggregate_pytree", "stack_flatten", "tree_leaves",
+           "tree_unflatten", "unflatten"]
 
 
 def tree_leaves(tree: Any) -> List[torch.Tensor]:
@@ -88,3 +90,21 @@ def unflatten(vec: torch.Tensor, ctx: Any) -> Any:
         out[k] = vec[off:off + size].reshape(shape).to(dtype)
         off += size
     return out
+
+
+def aggregate_pytree(stacked_tree: Any, gar_name: str, f: int):
+    """Apply a stateless rule across the leading worker axis of a
+    worker-stacked parameter dict.
+
+    Args:
+      stacked_tree: dict of ``(n, *shape)`` leaves.
+      gar_name: any stateless rule name ``resolve_rule`` accepts.
+      f: Byzantine bound.
+
+    Returns:
+      ``(aggregated dict, AggResult)``.
+    """
+    from repro_torch.core import gars
+    flat, ctx = stack_flatten(stacked_tree)
+    res = gars.get_gar(gar_name)(flat, f)
+    return unflatten(res.gradient, ctx), res

@@ -45,7 +45,7 @@ from typing import Any, List, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.attacks import _closed_gamma
+from repro_torch.core.attacks import _alie_z, _anti_or_ones, _closed_gamma
 from repro_torch.core.bulyan import coordinate_phase
 from repro_torch.core.pytree import tree_leaves, tree_unflatten
 from repro_torch.kernels.pairwise_gram import (finalize_dists,
@@ -194,7 +194,10 @@ def coordinate_phase_nd(selected: torch.Tensor, f: int,
 def distributed_aggregate(tree: Any, f: int, gar: str = "bulyan-krum", *,
                           agg_dtype: str = "native",
                           window: Optional[int] = None,
-                          distance_backend: str = "auto", mesh=None):
+                          distance_backend: str = "auto", mesh=None,
+                          state=None, history_window: Optional[int] = None,
+                          rep_lr: Optional[float] = None,
+                          rep_decay: Optional[float] = None):
     """Apply GAR ``gar`` across the leading worker axis of a gradient tree,
     leaf by leaf.
 
@@ -205,34 +208,44 @@ def distributed_aggregate(tree: Any, f: int, gar: str = "bulyan-krum", *,
       tree: dict (or list, or one tensor) of ``(n, *dims)``
         worker-stacked gradients, fp32 or bf16.
       f: Byzantine bound the rule defends against (quorum-checked).
-      gar: a stateless rule with a tree implementation: ``average``,
-        ``krum``, ``multikrum``, ``geomed``, ``cwmed``, ``trimmed_mean``,
-        ``bulyan-krum``, ``bulyan-geomed`` or ``fused-<base>``.  The
-        stateful families are not ported (the registry raises
-        ``NotImplementedError``).
+      gar: any rule with a tree implementation: the registered rules,
+        ``bulyan-krum``, ``bulyan-geomed``, ``fused-<base>`` and the
+        stateful ``buffered-<base>``, ``centered_clip_momentum``,
+        ``stale[-inv|-exp]-<base>`` and ``reputation-<base>``.
       agg_dtype: ``"native"`` (fp32) | ``"float32"`` | ``"bfloat16"``.
       window: coordinate-phase window of the bulyan rules (see
         :func:`coordinate_phase_nd`).
       distance_backend: ``"xla"`` | ``"pallas"`` | ``"fused"`` |
         ``"auto"`` (see the module docstring).
       mesh: must be ``None`` (ROADMAP item 9).
+      state: carried ``AggState`` of a stateful rule (``None``
+        zero-initializes one); stateless rules ignore it.
+      history_window: ``buffered-*`` window (``None``: the registry's
+        default).
+      rep_lr: ``reputation-*`` EMA rate (``None``: the default).
+      rep_decay: ``reputation-*`` forgetting factor (``None``: the
+        default).
 
     Returns:
-      ``(aggregated tree, DistAggResult)``; the aggregate's leaves keep
-      their input dtypes.
+      ``(aggregated tree, DistAggResult)`` for a stateless rule and
+      ``(aggregated tree, DistAggResult, new_state)`` for a stateful
+      one; the aggregate's leaves keep their input dtypes.
     """
     from repro_torch.agg.registry import TreeContext, resolve_rule
     from repro_torch.agg.specs import check_quorum
+    from repro_torch.agg.state import init_state
 
     n = _worker_count(tree)
-    check_quorum(gar, n, f, distributed=True)
-    rule = resolve_rule(gar)
+    params = dict(history_window=history_window, rep_lr=rep_lr,
+                  rep_decay=rep_decay)
+    rule = resolve_rule(gar, **params)
+    check_quorum(gar, n, f, distributed=True, history_window=history_window)
     backend = resolve_distance_backend(distance_backend, mesh)
     if backend == "fused":
         from repro_torch.agg.fused import fused_name
         lowered = fused_name(gar)
         if lowered is not None:
-            rule = resolve_rule(lowered)
+            rule = resolve_rule(lowered, **params)
     cdt = _compute_dtype(agg_dtype)
     leaves = _leaves(tree)
 
@@ -243,21 +256,23 @@ def distributed_aggregate(tree: Any, f: int, gar: str = "bulyan-krum", *,
     ctx = TreeContext(
         leaves=tuple(leaves), n=n, f=f, cdt=cdt, make_dists=make_dists,
         coordinate_phase=partial(coordinate_phase_nd, window=window))
-    with named_span("agg/select"):
-        out = rule.tree_fn(ctx)
+    if rule.stateful:
+        if state is None:
+            state = init_state(rule, tree, flat=False)
+        with named_span("agg/select"):
+            out, state = rule.tree_fn(ctx, state)
+    else:
+        with named_span("agg/select"):
+            out = rule.tree_fn(ctx)
     agg = tree_unflatten(tree, [a.to(leaf.dtype)
                                 for a, leaf in zip(out.leaves, leaves)])
-    return agg, DistAggResult(out.selected, out.scores)
+    res = DistAggResult(out.selected, out.scores)
+    return (agg, res, state) if rule.stateful else (agg, res)
 
 
 # ---------------------------------------------------------------------------
 # per-leaf Byzantine injection
 # ---------------------------------------------------------------------------
-
-#: attacks of the reference not ported yet -> their ROADMAP item (§1)
-_NOT_PORTED_ATTACKS = {"random": 3, "stale_replay": 7, "slow_drift": 7,
-                       "reputation_burn": 7, "colluding_majority": 7}
-
 
 def _tree_delta_bar(honest_leaves) -> torch.Tensor:
     """Paper §B.1 ``delta_bar`` over the concatenated coordinate space,
@@ -273,11 +288,6 @@ def _tree_delta_bar(honest_leaves) -> torch.Tensor:
         count += math.prod(leaf.shape[1:])
     c = 2.0 / torch.sqrt(torch.tensor(math.pi, dtype=torch.float32))
     return c.to(total.device) * total / max(count, 1)
-
-
-def _anti(mean: torch.Tensor) -> torch.Tensor:
-    """Against the sign of the honest mean, a zero mean counting as +1."""
-    return torch.where(mean == 0, torch.ones_like(mean), -torch.sign(mean))
 
 
 def _lp_direction(means, leaves, coord, step):
@@ -301,43 +311,57 @@ def _lp_direction(means, leaves, coord, step):
     return int(coord), 1.0
 
 
-def inject_byzantine(tree: Any, f: int, attack: str, *,
+def inject_byzantine(tree: Any, f: int, attack: str, generator=None, *,
                      gar_name: str = "krum", step=None, gamma=None,
                      scale: Optional[float] = None, eps: float = 0.5,
                      z: Optional[float] = None, target: int = 0,
                      coord=0, margin: float = 1.0,
-                     direction: str = "ones") -> Any:
+                     direction: str = "ones", prev: Any = None,
+                     hold: int = 0, build: int = 5) -> Any:
     """Replace the last ``f`` worker rows of every leaf with Byzantine
     submissions computed from the first ``n - f`` (honest) rows.
 
     All attacks run per leaf: the coordinate-wise ones (signflip, zero,
-    mimic, ipm, alie) are exactly their flat counterparts; the omniscient
-    ones use the paper's §B closed-form gamma (the exact search needs the
-    flat rule inside its loop), as the reference's distributed runtime
-    does.  ``random``, ``stale_replay``, ``slow_drift``,
-    ``reputation_burn`` and ``colluding_majority`` are not ported yet
-    and raise ``NotImplementedError`` naming their ROADMAP item.
+    mimic, ipm, alie, random) are exactly their flat counterparts; the
+    omniscient ones use the paper's §B closed-form gamma (the exact
+    search needs the flat rule inside its loop), as the reference's
+    distributed runtime does.
 
     Args:
       tree: dict (or list, or one tensor) of ``(n, *dims)``
         worker-stacked gradients.
       f: number of rows to overwrite (``f <= 0`` is a no-op).
       attack: ``"none"``, ``"signflip"``, ``"zero"``, ``"mimic"``,
-        ``"ipm"``, ``"alie"``, ``"omniscient_linf"`` or
-        ``"omniscient_lp"``.
+        ``"ipm"``, ``"alie"``, ``"random"``, ``"omniscient_linf"``,
+        ``"omniscient_lp"``, ``"stale_replay"``, ``"slow_drift"``,
+        ``"reputation_burn"`` or ``"colluding_majority"``.
+      generator: the ``torch.Generator`` of ``random`` and of
+        ``colluding_majority``'s random direction (``None``: one seeded
+        with 0); its stream differs from the reference's ``jax.random``.
       gar_name: rule the omniscient adversary targets (closed-form gamma).
-      step: training step (``omniscient_lp`` with ``coord="rotate"``).
+      step: training step (``omniscient_lp`` with ``coord="rotate"``,
+        the delay attacks and ``reputation_burn``).
       gamma: ``None`` or ``"closed"`` for the §B estimate (times
         ``margin``), or a float used verbatim.
-      scale: signflip magnitude (default 1).
-      eps: ipm's factor.
+      scale: magnitude of signflip (default 1), random (10),
+        stale_replay (1) and reputation_burn (3).
+      eps: ipm's factor, slow_drift's drift per step and
+        colluding_majority's offset, in units of delta_bar for the last
+        two.
       z: alie's z-score (``None``: from n and f, as the reference).
       target: mimic's copied honest worker.
       coord: ``omniscient_lp``'s coordinate in the concatenated space
         of the whole tree (leaf order), ``"rotate"`` or ``"top"``.
       margin: factor on the estimated gamma.
-      direction: ``omniscient_linf``'s +-1 vector, ``"ones"`` or
-        ``"anti"`` (against the sign of the honest mean).
+      direction: ``omniscient_linf``'s and ``slow_drift``'s +-1 vector,
+        ``"ones"`` or ``"anti"`` (against the sign of the honest mean);
+        ``colluding_majority``'s offset, ``"anti"`` (the negated honest
+        mean) or anything else (random).
+      prev: the delay attacks' previous bus rows, a tree of ``(f,
+        *dims)`` leaves in the same leaf order (``None``: both submit
+        off the current mean).
+      hold: ``stale_replay``'s re-record period (0: freeze).
+      build: ``reputation_burn``'s trust-building steps.
 
     Returns:
       The tree with the last f rows of every leaf replaced; dtypes and
@@ -349,12 +373,12 @@ def inject_byzantine(tree: Any, f: int, attack: str, *,
     n_h = n - f
     if n_h < 1:
         raise ValueError(f"need at least one honest worker (n={n}, f={f})")
-    if attack in _NOT_PORTED_ATTACKS:
-        raise NotImplementedError(
-            f"distributed attack {attack!r} is not ported yet (ROADMAP "
-            f"item {_NOT_PORTED_ATTACKS[attack]})")
     leaves = _leaves(tree)
     honest = [l[:n_h] for l in leaves]
+    dev = leaves[0].device
+    t = 0 if step is None else int(step)
+    if generator is None and attack in ("random", "colluding_majority"):
+        generator = torch.Generator(dev).manual_seed(0)
 
     def broadcast(byz_one, leaf):
         """Per-leaf Byzantine value -> f stacked rows, leaf dtype."""
@@ -374,15 +398,59 @@ def inject_byzantine(tree: Any, f: int, attack: str, *,
         byz = [broadcast(h[target], l) for h, l in zip(honest, leaves)]
     elif attack == "ipm":
         byz = [broadcast(-eps * m, l) for m, l in zip(means(), leaves)]
+    elif attack == "random":
+        s = 10.0 if scale is None else scale
+        byz = [s * torch.randn((f,) + tuple(l.shape[1:]),
+                               generator=generator, dtype=l.dtype,
+                               device=dev) for l in leaves]
     elif attack == "alie":
         if z is None:
-            s = (n // 2) + 1 - f
-            phi = max(min((n - f - s) / float(n - f), 1.0 - 1e-6), 1e-6)
-            z = float(torch.special.ndtri(
-                torch.tensor(phi, dtype=torch.float32)))
+            z = _alie_z(n, f)
         byz = [broadcast(m - z * torch.std(h.to(torch.float32), dim=0,
                                            correction=0), l)
                for m, h, l in zip(means(), honest, leaves)]
+    elif attack in ("stale_replay", "slow_drift"):
+        ms = means()
+        prevs = tree_leaves(prev) if prev is not None else [None] * len(
+            leaves)
+        if len(prevs) != len(leaves):
+            raise ValueError(
+                "prev must mirror the gradient tree's flat leaf order")
+        if attack == "stale_replay":
+            s = 1.0 if scale is None else scale
+            refresh = t == 0 or (hold > 0 and t % hold == 0)
+            byz = [broadcast(s * m, l) if p is None or refresh
+                   else p.to(l.dtype)
+                   for m, l, p in zip(ms, leaves, prevs)]
+        else:
+            db = _tree_delta_bar(honest)
+            es = [_anti_or_ones(m, direction) for m in ms]
+            byz = []
+            for m, e, l, p in zip(ms, es, leaves, prevs):
+                if p is None:
+                    byz.append(broadcast(m + eps * db * e, l))
+                elif t == 0:
+                    byz.append(broadcast(m, l))
+                else:
+                    byz.append((p.to(torch.float32)
+                                + eps * db * e[None]).to(l.dtype))
+    elif attack == "reputation_burn":
+        s = 3.0 if scale is None else scale
+        factor = 1.0 if t < build else -s
+        byz = [broadcast(factor * m, l) for m, l in zip(means(), leaves)]
+    elif attack == "colluding_majority":
+        # one unit direction over the concatenated coordinate space
+        db = _tree_delta_bar(honest)
+        ms = means()
+        if direction == "anti":
+            dirs = [-m for m in ms]
+        else:
+            dirs = [torch.randn(tuple(l.shape[1:]), generator=generator,
+                                dtype=torch.float32, device=dev)
+                    for l in leaves]
+        norm = torch.sqrt(sum(torch.sum(e * e) for e in dirs)) + 1e-12
+        byz = [broadcast(m + eps * db * e / norm, l)
+               for m, e, l in zip(ms, dirs, leaves)]
     elif attack in ("omniscient_linf", "omniscient_lp"):
         db = _tree_delta_bar(honest)
         ms = means()
@@ -394,8 +462,7 @@ def inject_byzantine(tree: Any, f: int, attack: str, *,
                                    device=db.device))
         if attack == "omniscient_linf":
             g = db * margin if estimated else fixed
-            es = [_anti(m) if direction == "anti" else torch.ones_like(m)
-                  for m in ms]
+            es = [_anti_or_ones(m, direction) for m in ms]
             byz = [broadcast(m + g * e, l)
                    for m, e, l in zip(ms, es, leaves)]
         else:

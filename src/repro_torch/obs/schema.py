@@ -1,8 +1,8 @@
 """The train-step metrics schema (counterpart of ``repro/obs/schema.py``).
 
-The flat synchronous trainer assembles its metrics through
-:func:`core_metrics`, so the metric names are the reference's.  The
-asynchronous extras wait for the port of the asynchronous runtime.
+The flat trainers assemble their metrics through :func:`core_metrics`
+and, on the asynchronous path, :func:`async_extras`, so the metric names
+are the reference's.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.core.pytree import tree_leaves
 
-__all__ = ["METRIC_SCHEMA", "core_metrics", "global_norm",
+__all__ = ["METRIC_SCHEMA", "async_extras", "core_metrics", "global_norm",
            "selection_weight"]
 
 #: canonical metric catalog: name -> (paths, description)
@@ -91,3 +91,30 @@ def core_metrics(*, loss, grad_norm, agg_dev, byz_weight,
         raise KeyError(f"metrics outside the schema: "
                        f"{sorted(set(metrics) - set(METRIC_SCHEMA))}")
     return metrics
+
+
+def async_extras(staleness: torch.Tensor, excess: torch.Tensor,
+                 deliver: torch.Tensor) -> Dict:
+    """The four extra metrics of the asynchronous paths.
+
+    Args:
+      staleness: ``(n,)`` int per-worker slot age ``t - bus.versions``.
+      excess: ``(n,)`` int overshoot of the staleness bound
+        (``repro_torch.dist.async_train.staleness_excess``).
+      deliver: ``(n,)`` bool delivery mask of this step.
+
+    Returns:
+      Dict with ``staleness_mean`` / ``staleness_max`` /
+      ``staleness_excess`` / ``delivered``, fp32 scalars.  The mean is
+      the sum times the rounded reciprocal of n, the product XLA runs
+      for the reference's ``jnp.mean``.
+    """
+    s = staleness.to(torch.float32)
+    inv_n = torch.tensor(1.0 / s.numel(), dtype=torch.float32,
+                         device=s.device)
+    return {
+        "staleness_mean": torch.sum(s) * inv_n,
+        "staleness_max": torch.max(staleness).to(torch.float32),
+        "staleness_excess": torch.max(excess).to(torch.float32),
+        "delivered": torch.sum(deliver).to(torch.float32),
+    }

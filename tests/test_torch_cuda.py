@@ -400,3 +400,85 @@ def test_k4_and_k3_take_unaligned_rows(card):
     w = _k4_weights(x, 39, 9, "bulyan-krum")
     assert _rel(fa.fused_coordinate(x, w, 9, mode="bulyan-krum"),
                 fa.fused_coordinate_plain(x, w, 9, mode="bulyan-krum")) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the stateful composites and the flat async trainer on the card
+# ---------------------------------------------------------------------------
+
+FUSED_COMPOSITES = ["stale-fused-bulyan-krum", "reputation-fused-bulyan-krum",
+                    "buffered-fused-cwmed", "buffered-fused-krum",
+                    "stale-exp-fused-cwmed"]
+
+
+@pytest.mark.parametrize("name", FUSED_COMPOSITES)
+def test_fused_composites_match_the_unfused_rule(card, name):
+    """Three steps of a wrapper over a ``fused-`` base on the kernels
+    against the same wrapper over the unfused rule, state carried."""
+    from repro_torch.agg.registry import resolve_rule
+    from repro_torch.agg.state import init_state
+    n, f, d = 11, 2, 3000
+    fused, plain = resolve_rule(name), resolve_rule(name.replace("fused-",
+                                                                 ""))
+    sf = init_state(fused, torch.zeros((n, d), device=card))
+    sp = init_state(plain, torch.zeros((n, d), device=card))
+    for t in range(3):
+        x = _stack(n, d, torch.float32, card, seed=t)
+        x[n - f:] = -x[:n - f].mean(dim=0)
+        if sf.bus != ():
+            v = torch.arange(n, device=card, dtype=torch.int32) % 3
+            v = torch.clamp_min(t - v, 0)
+            sf = sf._replace(bus=sf.bus._replace(versions=v))
+            sp = sp._replace(bus=sp.bus._replace(versions=v))
+        got, sf = fused.dense_fn(x, f, sf)
+        want, sp = plain.dense_fn(x, f, sp)
+        assert _rel(got.gradient, want.gradient) <= 1e-4, (name, t)
+        assert torch.equal(got.selected, want.selected), (name, t)
+
+
+def test_uniform_reputation_and_staleness_are_the_base_bitwise(card):
+    from repro_torch.agg.registry import resolve_rule
+    from repro_torch.agg.state import init_state
+    n, f = 39, 9
+    x = _stack(n, 5000, torch.float32, card, seed=4)
+    for base in ("fused-bulyan-krum", "fused-cwmed", "fused-krum"):
+        want = resolve_rule(base).dense_fn(x, f)
+        rep = resolve_rule(f"reputation-{base}")
+        got, _ = rep.dense_fn(x, f, init_state(rep, x))
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), base
+        stale = resolve_rule(f"stale-{base}")
+        st = init_state(stale, x)._replace(step=4)
+        got, _ = stale.dense_fn(x, f, st)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), base
+
+
+def test_brute_on_the_card_matches_the_cpu(card):
+    from repro_torch.core.gars import brute
+    x = _stack(11, 20000, torch.float32, card, seed=5)
+    got = brute(x, 5)
+    want = brute(x.cpu(), 5)
+    assert _rel(got.gradient.cpu(), want.gradient) <= 1e-4
+    assert torch.equal(got.selected.cpu(), want.selected)
+
+
+def test_async_trainer_at_tau_zero_is_the_sync_trainer(card):
+    from repro_torch.agg.specs import AggSpec
+    from repro_torch.data.synthetic import ByzantineBatcher
+    from repro_torch.models import simple
+    from repro_torch.optim import get_optimizer
+    from repro_torch.training import AsyncByzantineTrainer, ByzantineTrainer
+
+    def loss(p, x, y):
+        return simple.classification_loss(simple.mnist_mlp_forward(p, x),
+                                          y, p)
+
+    spec = AggSpec(n_workers=11, f=2, gar="stale-fused-bulyan-krum",
+                   attack="omniscient_linf",
+                   attack_kwargs=(("gamma", "closed"), ("margin", 0.8)))
+    out = []
+    for cls in (AsyncByzantineTrainer, ByzantineTrainer):
+        tr = cls(loss, simple.init_mnist_mlp(1, device=card),
+                 get_optimizer("sgd", 0.1), spec, seed=1)
+        tr.run(ByzantineBatcher("mnist", 9, 4, seed=1), 3)
+        out.append(tr.params)
+    assert all(torch.equal(out[0][k], out[1][k]) for k in out[0])

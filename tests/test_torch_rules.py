@@ -126,8 +126,116 @@ class TestBulyan:
         g = torch.from_numpy(_stack(6, 10))
         with pytest.raises(ValueError, match="bulyan requires n >= 4f"):
             tbul.make_bulyan("krum")(g, 1)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            treg.resolve_rule("bulyan-brute")
+        # Bulyan over a base without a recursion resolves, and raises the
+        # reference's KeyError when it runs
+        g = _stack(7, 10)
+        text = "unsupported bulyan base 'cwmed'"
+        with pytest.raises(KeyError, match=text):
+            treg.resolve_rule("bulyan-cwmed").dense_fn(torch.from_numpy(g), 1)
+        with pytest.raises(KeyError, match=text):
+            jreg.resolve_rule("bulyan-cwmed").dense_fn(jnp.asarray(g), 1)
+
+
+# ---------------------------------------------------------------------------
+# the two parity faults of the re-anchor after PR 15, pinned on their inputs
+# ---------------------------------------------------------------------------
+
+def _f1_stack():
+    """Values on a 0.1 grid: many window deviations tie exactly in fp32,
+    so the order of the prefix sums decides the window."""
+    return np.round(np.random.default_rng(0).standard_normal((39, 2000)),
+                    1).astype(np.float32)
+
+
+def _f2_stack():
+    """Worker 4's Krum score is a NaN with the sign bit set (inf - inf)."""
+    x = np.random.default_rng(0).standard_normal((11, 37)).astype(np.float32)
+    x[4, 6] = np.inf
+    return x
+
+
+def _same_nonfinite(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.array_equal(np.isposinf(got), np.isposinf(want))
+    assert np.array_equal(np.isneginf(got), np.isneginf(want))
+
+
+class TestFaults:
+    """F1: Bulyan's window sums must be fp32 sums in row order.  F2:
+    multikrum's top-m must rank a NaN score by its sign bit, as
+    ``lax.top_k`` does."""
+
+    def test_f1_coordinate_phase(self):
+        s = _f1_stack()[:21]
+        got = tbul.coordinate_phase(torch.from_numpy(s), 9).numpy()
+        want = np.asarray(jbul.coordinate_phase(jnp.asarray(s), 9))
+        _close(got, want)
+
+    @pytest.mark.parametrize("name", ["bulyan-krum", "bulyan-geomed"])
+    def test_f1_flat_bulyan(self, name):
+        x = _f1_stack()
+        want = jreg.resolve_rule(name).dense_fn(jnp.asarray(x), 9)
+        got = treg.resolve_rule(name).dense_fn(torch.from_numpy(x), 9)
+        _close(got.gradient.numpy(), np.asarray(want.gradient))
+        assert np.array_equal(got.selected.numpy(),
+                              np.asarray(want.selected))
+
+    @pytest.mark.parametrize("backend", ["xla", "pallas"])
+    def test_f1_tree_bulyan(self, backend):
+        from repro.dist import robust as jrobust
+        from repro_torch.dist import robust as trobust
+        x = _f1_stack()
+        tree = {"a": x[:, :1200], "b": x[:, 1200:]}
+        jagg, jres = jrobust.distributed_aggregate(
+            {k: jnp.asarray(v) for k, v in tree.items()}, 9, "bulyan-krum",
+            distance_backend=backend)
+        tagg, tres = trobust.distributed_aggregate(
+            {k: torch.from_numpy(v) for k, v in tree.items()}, 9,
+            "bulyan-krum", distance_backend=backend)
+        for k in tree:
+            _close(tagg[k].numpy(), np.asarray(jagg[k]))
+        assert np.array_equal(tres.selected.numpy(),
+                              np.asarray(jres.selected))
+
+    def test_f2_flat_multikrum(self):
+        x = _f2_stack()
+        want = jgars.multikrum(jnp.asarray(x), 2)
+        got = tgars.multikrum(torch.from_numpy(x), 2)
+        assert np.array_equal(got.selected.numpy(),
+                              np.asarray(want.selected))
+        _same_nonfinite(got.gradient.numpy(), np.asarray(want.gradient))
+        _close(got.gradient.numpy(), np.asarray(want.gradient))
+
+    @pytest.mark.parametrize("backend", ["xla", "pallas"])
+    def test_f2_tree_multikrum(self, backend):
+        from repro.dist import robust as jrobust
+        from repro_torch.dist import robust as trobust
+        x = _f2_stack()
+        tree = {"a": x[:, :20], "b": x[:, 20:]}
+        jagg, jres = jrobust.distributed_aggregate(
+            {k: jnp.asarray(v) for k, v in tree.items()}, 2, "multikrum",
+            distance_backend=backend)
+        tagg, tres = trobust.distributed_aggregate(
+            {k: torch.from_numpy(v) for k, v in tree.items()}, 2,
+            "multikrum", distance_backend=backend)
+        assert np.array_equal(tres.selected.numpy(),
+                              np.asarray(jres.selected))
+        for k in tree:
+            _same_nonfinite(tagg[k].numpy(), np.asarray(jagg[k]))
+            _close(tagg[k].numpy(), np.asarray(jagg[k]))
+
+    @pytest.mark.parametrize("vals", [
+        [1.0, float("nan"), -float("nan"), -0.0, 0.0, float("inf"),
+         -float("inf"), 1.0, 2.0],
+        [float("nan")] * 3 + [0.5] * 3,
+        [-0.0, 0.0, -0.0, 0.0]])
+    def test_top_k_total_order_matches_lax_top_k(self, vals):
+        v = np.array(vals, np.float32)
+        m = len(vals)
+        want = np.asarray(jax.lax.top_k(jnp.asarray(v), m)[1])
+        got = tgars.top_k_total_order(torch.from_numpy(v), m).numpy()
+        assert np.array_equal(got, want), (got, want)
 
 
 class TestRegistry:
@@ -144,8 +252,19 @@ class TestRegistry:
                                       "reputation-krum", "obs-krum",
                                       "brute", "centered_clip"])
     def test_unported_families_raise(self, name):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            treg.resolve_rule(name)
+        """Only the telemetry family is still unported; the others resolve
+        with the reference's contract."""
+        if name.startswith("obs-"):
+            with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
+                treg.resolve_rule(name)
+            return
+        t, j = treg.resolve_rule(name), jreg.resolve_rule(name)
+        for f in (0, 2):
+            assert t.min_n(f) == j.min_n(f)
+        assert (t.stateful, t.state_fields, t.history_window,
+                t.byzantine_resilient, t.invariants) == (
+            j.stateful, j.state_fields, j.history_window,
+            j.byzantine_resilient, j.invariants)
 
     @pytest.mark.parametrize("name", ["krum", "bulyan-krum", "cwmed",
                                       "fused-bulyan-krum", "fused-krum",
@@ -245,7 +364,11 @@ class TestAttacks:
         _close(got.numpy(), np.asarray(want))
 
     def test_unported_and_unknown(self):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tatk.get_attack("alie")
-        with pytest.raises(KeyError, match="unknown attack"):
+        """Every attack of the reference is ported; an unknown name raises
+        the reference's KeyError."""
+        assert sorted(tatk.ATTACKS) == sorted(jatk.ATTACKS)
+        with pytest.raises(KeyError) as got:
             tatk.get_attack("nope")
+        with pytest.raises(KeyError) as want:
+            jatk.get_attack("nope")
+        assert str(got.value) == str(want.value)

@@ -143,11 +143,17 @@ def test_metric_schema_matches_reference():
 
 
 def test_stateful_and_unported_rules_raise():
+    """The stateful rules build a step with the state in its signature;
+    the telemetry family (not ported) raises, naming its ROADMAP item."""
+    import inspect
     opt = get_optimizer("sgd", 0.1)
     for gar in ("buffered-krum", "reputation-krum"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            make_byzantine_step(_tloss, opt, AggSpec(n_workers=9, f=1,
-                                                     gar=gar))
+        step = make_byzantine_step(_tloss, opt, AggSpec(n_workers=9, f=1,
+                                                        gar=gar))
+        assert list(inspect.signature(step).parameters)[-1] == "agg_state"
+    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
+        make_byzantine_step(_tloss, opt, AggSpec(n_workers=9, f=1,
+                                                 gar="obs-krum"))
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
@@ -157,6 +163,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.training.trainer, repro_torch.agg.fused\n"
         "import repro_torch.interop, repro_torch.kernels._build\n"
         "import repro_torch.data, repro_torch.optim\n"
+        "import repro_torch.agg, repro_torch.core, repro_torch.dist\n"
+        "import repro_torch.obs, repro_torch.training\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or "
         "m == 'repro' or m.startswith('repro.')]\n"

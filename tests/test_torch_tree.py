@@ -224,8 +224,12 @@ class TestDistances:
         assert fused_name(gar) == jax_fused_name(gar)
 
     def test_fused_name_of_a_wrapper_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            fused_name("stale-krum")
+        """The wrapper prefixes are ported: the fused name keeps them."""
+        for gar in ("stale-krum", "stale-exp-bulyan-krum", "buffered-cwmed",
+                    "reputation-stale-krum", "obs-krum", "stale-brute",
+                    "stale-fused-krum"):
+            assert fused_name(gar) == jax_fused_name(gar)
+        assert fused_name("stale-krum") == "stale-fused-krum"
 
 
 # ---------------------------------------------------------------------------
@@ -278,9 +282,26 @@ class TestInjectByzantine:
                                         "slow_drift", "reputation_burn",
                                         "colluding_majority"])
     def test_unported_attacks_raise(self, attack):
-        ttree = _to_torch(_tree(MULTI, f=0))
-        with pytest.raises(NotImplementedError, match="ROADMAP item"):
-            robust.inject_byzantine(ttree, F, attack)
+        """These attacks are ported now: each runs per leaf and matches the
+        reference (``random`` draws from another PRNG, so it is held to
+        ``10 * randn`` from the same torch generator)."""
+        np_tree = _tree(MULTI, f=0)
+        ttree = _to_torch(np_tree)
+        kw = {"step": 7} if attack == "reputation_burn" else {}
+        if attack == "colluding_majority":
+            kw = {"direction": "anti"}
+        got = robust.inject_byzantine(ttree, F, attack, **kw)
+        if attack == "random":
+            gen = torch.Generator().manual_seed(0)
+            for k in sorted(got):
+                want = 10.0 * torch.randn((F,) + got[k].shape[1:],
+                                          generator=gen)
+                assert torch.equal(got[k][N - F:], want)
+                assert torch.equal(got[k][:N - F], ttree[k][:N - F])
+            return
+        want = jrobust.inject_byzantine(_to_jax(np_tree), F, attack, **kw)
+        for k in got:
+            _close(got[k], want[k], FP32_TOL)
 
     def test_noops_and_error_texts(self):
         ttree = _to_torch(_tree(MULTI, f=0))
@@ -386,11 +407,7 @@ class TestErrors:
                 check_quorum(gar, n, f, distributed=distributed)
             assert str(got.value) == str(e)
         else:
-            if gar == "bulyan-cwmed":   # flat Bulyan(cwmed) waits
-                with pytest.raises(NotImplementedError):
-                    check_quorum(gar, n, f, distributed=distributed)
-            else:
-                check_quorum(gar, n, f, distributed=distributed)
+            check_quorum(gar, n, f, distributed=distributed)
 
     def test_mesh_is_not_ported(self):
         with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
