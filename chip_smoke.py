@@ -89,12 +89,37 @@ Phases, in order; any failure exits nonzero before the last line:
    mode, ``x.sum(dim=0)``), and the selection's
    event and device time in each of its five modes.  It comes last
    because a profiler session leaves later launches slower on the host.
-7. One JSON line of per-kernel measurements, then the result line
+7. Telemetry and the self-audit (after phase 6), with cuDNN set
+   deterministic (its default weight-gradient algorithms are not
+   bitwise repeatable): (7a) the Fig. 4 step with
+   ``AggSpec(telemetry=True)`` (``obs-fused-bulyan-krum``) beside the
+   same run without, steps interleaved, 10 MLP and 3 CNN steps:
+   parameters equal bit for bit and launches as phase 3's after every
+   step, ``telemetry()["pushed"]`` the step count, each ring row's
+   ``selected`` that step's, step 0's row against ``dense_diagnostics``
+   on a CPU copy at 1e-4 (``selected``, ``scores``, ``step`` exact), and
+   ms per step off and on; (7b) ``AsyncByzantineTrainer`` (tau = 2) over
+   ``obs-stale-fused-bulyan-krum`` beside ``stale-fused-bulyan-krum``, 5
+   MLP steps, the ring's staleness rows against the bus, and the CNN's
+   tree through ``obs-fused-bulyan-krum`` (``fused``) beside
+   ``fused-bulyan-krum``, its ``tree_diagnostics`` row against the CPU;
+   (7c) ``scripts/torch_obs_report.py``'s demo (MLP, n = 15, f = 3, 12
+   steps, ``fused-krum``), which must exit 0; (7d) the leeway meter with
+   ``DEFAULT_RULES``, their ``fused-`` forms and the weakened
+   ``bulyan-weak``, on ``DEFAULT_DIMS`` against
+   ``benchmarks/artifacts/leeway_baseline.json`` and on d up to
+   486,346 against ``DEFAULT_EXPECTATIONS``: only ``bulyan-weak``
+   flagged, each ``fused-`` margin its base's at 1e-4, launches exact
+   per rung, seconds per rung; (7e) the quick audit sweep on CUDA
+   tensors: no violation, the CPU run's case counts per section, the
+   ``fp32`` section's kernel launches, seconds per section.
+8. One JSON line of per-kernel measurements, then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import importlib
+import importlib.util
 import json
 import math
 import pathlib
@@ -1386,6 +1411,333 @@ def phase_fp32(torch, rt):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: telemetry and the self-audit
+# ---------------------------------------------------------------------------
+
+#: the paper's two MLP / CNN widths on top of the meter's default ladder
+PAPER_DIMS = (64, 256, 1024, D_MLP, D_CNN)
+#: launches of one fused rule's aggregation, by its base
+RULE_LAUNCHES = {
+    **{m: STEP_LAUNCHES["bulyan-krum"] for m in
+       ("krum", "multikrum", "geomed", "bulyan-krum", "bulyan-geomed")},
+    **{m: STEP_LAUNCHES["cwmed"] for m in ("cwmed", "trimmed_mean")},
+}
+
+
+def per_step(launches: dict, times: int = 1) -> dict:
+    """Every counter's expected value: ``times`` x ``launches``."""
+    return {name: times * launches.get(name, 0) for name in REPLACES}
+
+
+def compare_record(torch, np, got: dict, want, what: str) -> None:
+    """A drained ring row against a diagnostics row computed on the CPU:
+    ``selected``, ``scores`` and ``step`` exact, the rest at 1e-4 of the
+    largest entry (NaN in the same places)."""
+    for fld, w in want._asdict().items():
+        g = torch.as_tensor(np.asarray(got[fld]))
+        w = w.detach().cpu()
+        if fld in ("selected", "scores", "step"):
+            expect(torch.equal(g, w), f"{what}: ring {fld} differs")
+        else:
+            expect(torch.equal(torch.isnan(g), torch.isnan(w)),
+                   f"{what}: ring {fld} NaN places differ")
+            err, rel = rel_err(torch.nan_to_num(g), torch.nan_to_num(w))
+            expect(rel <= FP32_TOL, f"{what}: ring {fld} rel err {rel:.3e}")
+
+
+def fig4_trainers(torch, rt, kind, cls, gar, **spec_kw):
+    """The same Fig. 4 trainer twice from one seed: telemetry off, on."""
+    out = {}
+    for telemetry in (False, True):
+        params, loss = model_and_loss(rt, kind)
+        spec = rt["AggSpec"](n_workers=N_MAIN, f=F_MAIN, gar=gar,
+                             attack="omniscient_linf", attack_kwargs=LINF,
+                             telemetry=telemetry, **spec_kw)
+        opt = rt["get_optimizer"]("sgd", rt["fading_lr"](ETA0, 1e4))
+        out[telemetry] = cls(loss, params, opt, spec, seed=1, device="cuda")
+    return out, loss
+
+
+def interleaved_steps(torch, rt, trainers, kind, steps, what, after=None):
+    """Steps of the off and on trainers in turn, each counted and timed;
+    parameters equal bit for bit and launches as phase 3's after every
+    step.  ``after(t)`` runs once both have taken step t."""
+    build = rt["build"]
+    batcher = rt["ByzantineBatcher"](kind, N_MAIN - F_MAIN, 16, seed=1,
+                                     noise=0.5)
+    want = per_step(STEP_LAUNCHES["bulyan-krum"])
+    ms = {False: [], True: []}
+    for t in range(steps):
+        for telemetry in (False, True):
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            trainers[telemetry].run(batcher, 1, start_step=t)
+            torch.cuda.synchronize()
+            ms[telemetry].append((time.perf_counter() - t0) * 1e3)
+            expect_launches(dict(build.LAUNCHES), want,
+                            f"{what} step {t} telemetry={telemetry}")
+        off, on = trainers[False].params, trainers[True].params
+        expect(all(torch.equal(off[k], on[k]) for k in off),
+               f"{what} step {t}: telemetry changed the parameters")
+        if after is not None:
+            after(t)
+    return ms
+
+
+def phase_telemetry(torch, np, rt, kind, steps):
+    """7a: Fig. 4 training with ``AggSpec(telemetry=True)`` beside the
+    same run without it."""
+    tr = rt["trainer"]
+    trainers, loss = fig4_trainers(torch, rt, kind, tr.ByzantineTrainer,
+                                   "fused-bulyan-krum")
+    on = trainers[True]
+    expect(on.spec.effective_gar == "obs-fused-bulyan-krum",
+           f"7a: effective gar {on.spec.effective_gar}")
+    batcher = rt["ByzantineBatcher"](kind, N_MAIN - F_MAIN, 16, seed=1,
+                                     noise=0.5)
+    k5 = rt["resolve_rule"]("fused-bulyan-krum")
+    selected, step0 = [], {}
+
+    def before(t):
+        # this step's stack and selection, recomputed outside the
+        # counted window from the parameters the step will read
+        x, y = batcher.batch(t)
+        full, _, _ = tr.byzantine_stack(
+            loss, on.spec, on.params, torch.as_tensor(x, device="cuda"),
+            torch.as_tensor(y, device="cuda").long(),
+            step=on.opt_state["step"])
+        res = k5.dense_fn(full, F_MAIN)
+        selected.append(res.selected.cpu())
+        if t == 0:
+            step0.update(full=full.cpu(), res=res)
+
+    before(0)
+    ms = interleaved_steps(
+        torch, rt, trainers, kind, steps, f"7a {kind}",
+        after=lambda t: before(t + 1) if t + 1 < steps else None)
+    tel = on.telemetry()
+    expect(tel["pushed"] == steps, f"7a {kind}: pushed {tel['pushed']}")
+    for t, rec in enumerate(tel["records"]):
+        expect(torch.equal(torch.as_tensor(rec["selected"]), selected[t]),
+               f"7a {kind}: ring row {t} selected differs from the step's")
+    res = step0["res"]
+    want = rt["dense_diagnostics"](
+        step0["full"], res.gradient.cpu(), res.selected.cpu(),
+        res.scores.cpu(), F_MAIN, 1, torch.ones(N_MAIN),
+        torch.zeros(N_MAIN))
+    compare_record(torch, np, tel["records"][0], want,
+                   f"7a {kind} step 0")
+    off, on_ms = (statistics.median(ms[False]),
+                  statistics.median(ms[True]))
+    print(f"  ok  7a {kind}: {steps} steps obs-fused-bulyan-krum == "
+          f"fused-bulyan-krum bit for bit, launches per step "
+          f"{STEP_LAUNCHES['bulyan-krum']} both; pushed {tel['pushed']}, "
+          f"ring selected == each step's, step-0 row vs the CPU at 1e-4",
+          flush=True)
+    print(f"  7a {kind}: ms per step median telemetry off {off:.3f} "
+          f"(range {min(ms[False]):.3f}-{max(ms[False]):.3f}), on "
+          f"{on_ms:.3f} (range {min(ms[True]):.3f}-{max(ms[True]):.3f}), "
+          f"on / off {on_ms / off:.4f} (the reference's "
+          f"benchmarks/obs_overhead.py gate: < 1.05)", flush=True)
+    return {"steps": steps, "off_ms": ms[False], "on_ms": ms[True]}
+
+
+def phase_telemetry_async(torch, np, rt, steps):
+    """7b: the async trainer over ``obs-stale-fused-bulyan-krum`` (tau =
+    2) beside ``stale-fused-bulyan-krum``; the ring's staleness rows
+    against the bus."""
+    trainers, _ = fig4_trainers(torch, rt, "mnist",
+                                rt["trainer"].AsyncByzantineTrainer,
+                                "stale-fused-bulyan-krum", async_tau=2)
+    on = trainers[True]
+    stale_rows = []
+
+    def after(t):
+        st = on.agg_state
+        stale_rows.append(torch.clamp_min(st.step - st.bus.versions, 0)
+                          .float().cpu())
+
+    ms = interleaved_steps(torch, rt, trainers, "mnist", steps,
+                           "7b async", after=after)
+    tel = on.telemetry()
+    expect(tel["pushed"] == steps, f"7b: pushed {tel['pushed']}")
+    for t, rec in enumerate(tel["records"]):
+        expect(torch.equal(torch.as_tensor(rec["staleness"]),
+                           stale_rows[t]),
+               f"7b: ring staleness row {t} differs from the bus")
+    print(f"  ok  7b async tau=2: {steps} MLP steps "
+          f"obs-stale-fused-bulyan-krum == stale-fused-bulyan-krum bit "
+          f"for bit, launches per step as phase 3b; ring staleness == bus "
+          f"(last {stale_rows[-1].tolist()}); ms per step median off "
+          f"{statistics.median(ms[False]):.3f} on "
+          f"{statistics.median(ms[True]):.3f}", flush=True)
+
+
+def phase_telemetry_tree(torch, np, rt):
+    """7b: ``obs-fused-bulyan-krum`` on the CNN's gradient tree through
+    the ``fused`` backend beside ``fused-bulyan-krum``."""
+    build, da = rt["build"], rt["distributed_aggregate"]
+    tree = tree_submissions(torch, rt, "cifar")
+    keys = sorted(tree)
+    want_launches = expected_launches(build, "fused", "bulyan-krum",
+                                      len(tree))
+    (want, wres), counts = counted(torch, build, lambda: da(
+        tree, F_MAIN, "fused-bulyan-krum", distance_backend="fused"))
+    expect_launches(counts, want_launches, "7b tree fused-bulyan-krum")
+    rule = rt["resolve_rule"]("obs-fused-bulyan-krum")
+    state = rt["init_state"](rule, tree, flat=False)
+    (got, gres, state), counts = counted(torch, build, lambda: da(
+        tree, F_MAIN, "obs-fused-bulyan-krum", distance_backend="fused",
+        state=state))
+    expect_launches(counts, want_launches, "7b tree obs-fused-bulyan-krum")
+    expect(all(torch.equal(got[k], want[k]) for k in keys),
+           "7b tree: obs- leaves differ from fused-bulyan-krum's")
+    expect(torch.equal(gres.selected, wres.selected),
+           "7b tree: obs- selection differs")
+    ref = rt["tree_diagnostics"](
+        [tree[k].cpu() for k in keys], [want[k].cpu() for k in keys],
+        wres.selected.cpu(), wres.scores.cpu(), F_MAIN, 1,
+        torch.ones(N_MAIN), torch.zeros(N_MAIN))
+    compare_record(torch, np, rt["drain"](state.obs)["records"][0], ref,
+                   "7b tree")
+    print(f"  ok  7b tree: CNN {len(tree)} leaves obs-fused-bulyan-krum "
+          f"(fused) == fused-bulyan-krum bit for bit, launches {counts}; "
+          f"tree_diagnostics row vs the CPU at 1e-4", flush=True)
+
+
+def phase_report(torch, rt):
+    """7c: ``scripts/torch_obs_report.py``'s demo on the MLP (n = 15, f =
+    3, 12 steps, ``fused-krum``), in this process."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_obs_report", ROOT / "scripts" / "torch_obs_report.py")
+    report = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(report)
+    build = rt["build"]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    rc = report.main(["--gar", "fused-krum", "--steps", "12", "--device",
+                      "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(build.LAUNCHES)
+    expect(rc == 0, f"7c: torch_obs_report exited {rc}: no entropy "
+           f"collapse, or no Byzantine row blamed")
+    expect(counts["fused_aggregate"] > 0, f"7c: no kernel ran: {counts}")
+    print(f"  ok  7c defense report: entropy collapse and a Byzantine row "
+          f"blamed; launches {counts}; {secs:.2f} s", flush=True)
+
+
+def phase_leeway(torch, rt):
+    """7d: the leeway law on the card, through the fused kernels."""
+    lw = rt["leeway"]
+    fused = [f"fused-{r}" for r in lw.DEFAULT_RULES
+             if r in rt["FUSED_BASES"]]
+    rules = list(lw.DEFAULT_RULES) + fused + [("bulyan-weak",
+                                               "bulyan-krum", 0)]
+    weak = {"bulyan-weak": ("rel", None, -0.25)}
+    with open(ROOT / "benchmarks" / "artifacts" /
+              "leeway_baseline.json") as fh:
+        baseline = json.load(fh)
+    per_d = {}
+    for name in REPLACES:
+        per_d[name] = sum(RULE_LAUNCHES[g[len("fused-"):]].get(name, 0)
+                          for g in fused)
+    honest_stack = lw._honest_stack
+    reports = {}
+    for dims, kw in ((lw.DEFAULT_DIMS, {"baseline": baseline}),
+                     (PAPER_DIMS, {})):
+        starts = []
+
+        def timed_stack(*args):
+            # one timestamp per rung, the device idle
+            torch.cuda.synchronize()
+            starts.append(time.perf_counter())
+            return honest_stack(*args)
+
+        lw._honest_stack = timed_stack
+        try:
+            (rep, counts) = counted(torch, rt["build"], lambda: lw.
+                                    measure_leeway(rules=rules, dims=dims,
+                                                   device="cuda"))
+        finally:
+            lw._honest_stack = honest_stack
+        starts.append(time.perf_counter())
+        secs = [b - a for a, b in zip(starts, starts[1:])]
+        expect_launches(counts, {k: v * len(dims) for k, v in per_d.items()},
+                        f"7d leeway {dims}")
+        violations = lw.certify(rep, expectations={
+            **lw.DEFAULT_EXPECTATIONS, **weak}, **kw)
+        against = "the baseline" if kw else "DEFAULT_EXPECTATIONS"
+        expect(all("bulyan-weak" in v for v in violations),
+               f"7d {dims}: certify against {against}: {violations}")
+        expect(any("bulyan-weak" in v for v in violations),
+               f"7d {dims}: the weakened rule passed certification")
+        for g in fused:
+            base = rep["rules"][g[len("fused-"):]]["margin_abs"]
+            for i, (a, b) in enumerate(zip(rep["rules"][g]["margin_abs"],
+                                           base)):
+                expect(abs(a - b) <= FP32_TOL * abs(b),
+                       f"7d {g} at d={dims[i]}: margin {a} vs {b}")
+        print(f"  ok  7d leeway dims {list(dims)}: certify against "
+              f"{against} flags only the weakened rule "
+              f"({violations}); fused margins == unfused at 1e-4; "
+              f"launches {counts}", flush=True)
+        for label, r in rep["rules"].items():
+            print(f"    {label:18s} margin_abs "
+                  f"{[float('%.4g' % m) for m in r['margin_abs']]} "
+                  f"slope_abs {r['slope_abs']:+.3f} slope_rel "
+                  f"{r['slope_rel']:+.3f}", flush=True)
+        for g, r in rep["gamma"].items():
+            print(f"    gamma_{g:12s} {[float('%.4g' % v) for v in r['values']]}"
+                  f" slope {r['slope']:+.3f}", flush=True)
+        print(f"    seconds per d {dict(zip(dims, [round(x, 3) for x in secs]))}",
+              flush=True)
+        reports[dims] = rep
+    return reports
+
+
+def phase_sweep(torch, rt):
+    """7e: the quick audit sweep on CUDA tensors, per section timed and
+    counted, against the same sweep on the CPU."""
+    import contextlib
+    sw, build = rt["sweep"], rt["build"]
+    secs, launches = {}, {}
+
+    @contextlib.contextmanager
+    def hook(name):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        launches[name] = dict(build.LAUNCHES)
+
+    report = sw.run_sweep(sw.QUICK, device="cuda", section_hook=hook)
+    expect(report.ok(), f"7e: {len(report.violations)} violations, first "
+           f"{report.violations[:3]}")
+    cpu = sw.run_sweep(sw.QUICK, device="cpu")
+    expect(cpu.ok(), f"7e: the CPU sweep has violations "
+           f"{cpu.violations[:3]}")
+    cases = {k: v[0] for k, v in report.sections.items()}
+    expect(cases == {k: v[0] for k, v in cpu.sections.items()},
+           f"7e: case counts {cases} differ from the CPU's "
+           f"{cpu.sections}")
+    expect("speculative" not in cases, "7e: a speculative section ran")
+    expect(sum(launches["fp32"].values()) > 0,
+           f"7e: the fp32 section launched no kernel: {launches['fp32']}")
+    print(f"  ok  7e quick sweep on CUDA tensors: {report.cases} cases, 0 "
+          f"violations, per-section cases == the CPU's {cases}", flush=True)
+    for name, s in secs.items():
+        print(f"    {name:12s} {s:8.3f} s  launches "
+              f"{ {k: v for k, v in launches[name].items() if v} }",
+              flush=True)
+    return {"secs": secs, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 
 def print_ptxas(log: pathlib.Path) -> None:
     """One line per kernel of an ``-Xptxas -v`` build log: its (mangled)
@@ -1437,7 +1789,11 @@ def main() -> int:
         importlib.import_module(f"repro_torch.kernels.{name}")
         for name in ("bulyan_select", "coord_stats", "fused_agg",
                      "pairwise_gram"))
+    from repro_torch.agg.fused import FUSED_BASES
+    from repro_torch.audit import leeway, sweep
     from repro_torch.models import simple
+    from repro_torch.obs.buffer import drain
+    from repro_torch.obs.forensics import dense_diagnostics, tree_diagnostics
     from repro_torch.optim import fading_lr, get_optimizer
     from repro_torch.training import trainer
     rt = dict(simple=simple, trainer=trainer, fused_agg=fused_agg,
@@ -1450,7 +1806,10 @@ def main() -> int:
               inject_byzantine=inject_byzantine, ops=kernel_ops,
               select_indices_from_dists=select_indices_from_dists,
               coord_stats=coord_stats.coord_stats, probes=probes,
-              init_state=init_state, update_bus=update_bus)
+              init_state=init_state, update_bus=update_bus, drain=drain,
+              dense_diagnostics=dense_diagnostics,
+              tree_diagnostics=tree_diagnostics, leeway=leeway,
+              sweep=sweep, FUSED_BASES=FUSED_BASES)
     ops = {"fused_agg": fused_agg, "pairwise_gram": pairwise_gram,
            "bulyan_select": bulyan_select, "coord_stats": coord_stats}
 
@@ -1510,6 +1869,23 @@ def main() -> int:
     read_yardstick(torch, timer)
     k2_yardsticks(torch, ops, timer)
     time_select_modes(torch, ops, timer)
+
+    print("== phase 7: telemetry and audit", flush=True)
+    import numpy as np
+    t7 = time.perf_counter()
+    # cuDNN's default weight-gradient algorithms accumulate in no fixed
+    # order, so two CNN runs from one seed differ in the last bits; the
+    # deterministic ones let 7a hold telemetry off == on bit for bit
+    torch.backends.cudnn.deterministic = True
+    phase_telemetry(torch, np, rt, "mnist", 10)
+    phase_telemetry(torch, np, rt, "cifar", 3)
+    phase_telemetry_async(torch, np, rt, 5)
+    phase_telemetry_tree(torch, np, rt)
+    phase_report(torch, rt)
+    phase_leeway(torch, rt)
+    phase_sweep(torch, rt)
+    print(f"  phase 7 took {time.perf_counter() - t7:.1f} s ({smi})",
+          flush=True)
 
     kernels = []
     for model, kind in (("mlp", "mnist"), ("cnn", "cifar")):

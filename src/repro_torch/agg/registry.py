@@ -21,9 +21,10 @@ means of a per-worker history window (``repro_torch.agg.buffered``),
 ``"stale[-inv|-exp]-<base>"`` scales the stack by per-worker staleness
 read from the carried gradient bus (``repro_torch.agg.staleness``) and
 ``"reputation-<base>"`` blends it by carried trust scores
-(``repro_torch.agg.reputation``).  The telemetry family ``"obs-<base>"``
-is not ported yet and raises ``NotImplementedError``; unknown names
-raise the reference's ``KeyError``.  Resolved composites are cached on
+(``repro_torch.agg.reputation``), and ``"obs-<base>"`` records per-call
+aggregation forensics into the carried state with the base's data path
+untouched (``repro_torch.obs.forensics``).  Unknown names raise the
+reference's ``KeyError``.  Resolved composites are cached on
 ``(name, history_window, rep_lr, rep_decay)``.
 """
 from __future__ import annotations
@@ -153,6 +154,9 @@ class AggregatorRule:
                 wrapper first.
     history_window: sliding-window length of history-buffered rules.
     invariants: declared output invariants (see the reference).
+    obs_capacity: ring rows ``init_state`` allocates for the telemetry
+                ``MetricsBuffer``; set only by the ``obs-<base>`` family
+                (``repro_torch.obs.forensics``), ``None`` otherwise.
     doc:        one-line human description.
     """
 
@@ -165,6 +169,7 @@ class AggregatorRule:
     state_fields: Tuple[str, ...] = ()
     history_window: Optional[int] = None
     invariants: Tuple[str, ...] = ("finite", "hull")
+    obs_capacity: Optional[int] = None
     doc: str = ""
 
     @property
@@ -312,6 +317,18 @@ def _reputation_rule(name: str, window: int, rep_lr: float,
                            rep_decay=rep_decay)
 
 
+def _obs_rule(name: str, window: int, rep_lr: float,
+              rep_decay: float) -> AggregatorRule:
+    from repro_torch.obs.forensics import make_obs
+    rest = name.split("-", 1)[1]
+    base_rule = resolve_rule(rest, history_window=window, rep_lr=rep_lr,
+                             rep_decay=rep_decay)
+    if "obs" in base_rule.state_fields:
+        raise KeyError(
+            f"obs-* cannot nest another obs rule, got {rest!r}")
+    return make_obs(name, base_rule)
+
+
 def resolve_rule(name: str, history_window: Optional[int] = None,
                  rep_lr: Optional[float] = None,
                  rep_decay: Optional[float] = None) -> AggregatorRule:
@@ -319,9 +336,10 @@ def resolve_rule(name: str, history_window: Optional[int] = None,
 
     Args:
       name: a registered key, ``"bulyan-<base>"``, ``"buffered-<base>"``,
-        ``"stale[-inv|-exp]-<base>"``, ``"reputation-<base>"`` or
-        ``"fused-<base>"``; bases nest, e.g. ``"stale-fused-bulyan-krum"``
-        or ``"stale-reputation-krum"``.
+        ``"stale[-inv|-exp]-<base>"``, ``"reputation-<base>"``,
+        ``"fused-<base>"`` or ``"obs-<base>"``; bases nest, e.g.
+        ``"stale-fused-bulyan-krum"``, ``"stale-reputation-krum"`` or
+        ``"obs-stale-reputation-krum"``.
       history_window: window of ``buffered-*`` rules (``None`` =
         :data:`DEFAULT_HISTORY_WINDOW`; passed through wrapper prefixes).
       rep_lr: EMA rate of ``reputation-*`` rules (``None`` =
@@ -331,8 +349,7 @@ def resolve_rule(name: str, history_window: Optional[int] = None,
 
     Returns:
       The resolved :class:`AggregatorRule`.  Raises ``KeyError`` for an
-      unknown name, with the reference's text, and
-      ``NotImplementedError`` for the ``obs-`` family (ROADMAP item 4).
+      unknown name or a forbidden nesting, with the reference's texts.
     """
     _populate()
     if name in RULES:
@@ -356,9 +373,7 @@ def resolve_rule(name: str, history_window: Optional[int] = None,
     elif name.startswith("reputation-"):
         rule = _reputation_rule(name, window, lr, decay)
     elif name.startswith("obs-"):
-        raise NotImplementedError(
-            f"rule {name!r}: the obs- telemetry family is not ported yet "
-            f"(ROADMAP item 4)")
+        rule = _obs_rule(name, window, lr, decay)
     elif name.startswith("fused-"):
         from repro_torch.agg.fused import make_fused
         rule = make_fused(name)

@@ -39,7 +39,13 @@ class AggSpec:
         the rule carries reputation, the trainers score agreement
         against its gradient instead of the aggregate.  Excluded from
         equality.
-    The telemetry, serving and sharded fields come with those paths.
+      telemetry: when True every layer resolves the GAR through
+        ``effective_gar`` (the ``obs-<gar>`` forensics wrapper,
+        ``repro_torch.obs``), so the carried ``AggState.obs`` ring
+        records per-worker diagnostics each step.  The data path is the
+        same either way, bit for bit; attacks keep targeting the raw
+        ``gar`` name.
+    The serving and sharded fields come with those paths.
     """
 
     f: int
@@ -56,6 +62,7 @@ class AggSpec:
     async_schedule: str = "fixed"      # fixed | random
     rep_lr: Optional[float] = None     # reputation-* EMA rate (None=default)
     rep_decay: Optional[float] = None  # reputation-* forgetting factor
+    telemetry: bool = False            # aggregate through obs-<gar>
     aux_batch: Any = dataclasses.field(default=None, compare=False)
 
     @property
@@ -70,14 +77,29 @@ class AggSpec:
         """The bound the master aggregates with (defaults to ``f``)."""
         return self.declared_f if self.declared_f is not None else self.f
 
+    @property
+    def effective_gar(self) -> str:
+        """The GAR name the runtime aggregates with.
+
+        ``gar`` itself normally; with ``telemetry=True`` the idempotent
+        ``obs-<gar>`` forensics wrapper, whose data path is the base
+        rule's bit for bit.  The attacks keep reading the raw ``gar``:
+        the attacker targets the defense, not its instrumentation.
+        """
+        if not self.telemetry:
+            return self.gar
+        from repro_torch.obs.forensics import obs_name
+        return obs_name(self.gar)
+
     def rule(self):
         """Resolve this spec's GAR through the registry.
 
         Returns:
-          The resolved ``AggregatorRule`` (with this spec's
-          ``history_window`` and reputation schedule).
+          The resolved ``AggregatorRule`` of ``effective_gar`` (with this
+          spec's ``history_window`` and reputation schedule).
         """
-        return resolve_rule(self.gar, history_window=self.history_window,
+        return resolve_rule(self.effective_gar,
+                            history_window=self.history_window,
                             rep_lr=self.rep_lr, rep_decay=self.rep_decay)
 
     def aggregate_tree(self, tree, *, window: Optional[int] = None,
@@ -85,9 +107,9 @@ class AggSpec:
         """Aggregate a worker-stacked gradient tree under this spec.
 
         The call the reference's distributed trainer makes:
-        ``distributed_aggregate`` with this spec's ``gar``, declared
-        ``f``, ``agg_dtype``, ``distance_backend`` and stateful-rule
-        parameters.
+        ``distributed_aggregate`` with this spec's ``effective_gar``,
+        declared ``f``, ``agg_dtype``, ``distance_backend`` and
+        stateful-rule parameters.
 
         Args:
           tree: dict (or list, or one tensor) of ``(n, *dims)`` leaves.
@@ -100,7 +122,8 @@ class AggSpec:
         """
         from repro_torch.dist.robust import distributed_aggregate
         return distributed_aggregate(
-            tree, self.f_declared, self.gar, agg_dtype=self.agg_dtype,
+            tree, self.f_declared, self.effective_gar,
+            agg_dtype=self.agg_dtype,
             window=window, distance_backend=self.distance_backend,
             state=state, history_window=self.history_window,
             rep_lr=self.rep_lr, rep_decay=self.rep_decay)
@@ -122,7 +145,8 @@ class AggSpec:
             raise ValueError(
                 "validate() needs n_workers — set it on the spec or pass "
                 "it explicitly")
-        check_quorum(self.gar, n, self.f_declared, distributed=distributed,
+        check_quorum(self.effective_gar, n, self.f_declared,
+                     distributed=distributed,
                      history_window=self.history_window)
 
 

@@ -18,8 +18,9 @@ fields:
 * ``reputation``: the ``reputation-*`` rules' per-worker fp32 scores,
   initialized to ones (uniform reputation reproduces the base rule
   bitwise);
-* ``obs``: the telemetry ring of the ``obs-*`` rules, which are not
-  ported yet (ROADMAP item 4); it stays ``()``.
+* ``obs``: the ``obs-*`` telemetry rules' fixed-size
+  ``MetricsBuffer`` forensics ring (``repro_torch.obs.buffer``), one
+  diagnostics row per aggregation call.
 
 Unused fields stay ``()``.  Rules never update a state in place: each
 returns a new :class:`AggState`.
@@ -44,7 +45,7 @@ class AggState(NamedTuple):
     center:     momentum-carried center leaves, or ``()``.
     bus:        the asynchronous runtime's ``GradientBus``, or ``()``.
     reputation: per-worker fp32 trust scores in [0, 1], or ``()``.
-    obs:        the telemetry ring (not ported; always ``()``).
+    obs:        the telemetry ``MetricsBuffer`` forensics ring, or ``()``.
     """
 
     step: int = 0
@@ -77,9 +78,10 @@ def init_state(rule: AggregatorRule, template: Any,
 
     Returns:
       An :class:`AggState` with ``step = 0``, fp32 zero buffers for the
-      fields in ``rule.state_fields``, a zeroed bus for ``"bus"`` and a
-      ones buffer for ``"reputation"``.  Raises ``NotImplementedError``
-      for ``"obs"`` (ROADMAP item 4).
+      fields in ``rule.state_fields``, a zeroed bus for ``"bus"``, a
+      ones buffer for ``"reputation"`` and, for ``"obs"``, an empty
+      ``MetricsBuffer`` ring of ``rule.obs_capacity`` rows sized to the
+      template's worker axis.
     """
     leaves = tree_leaves(template)
     dense = (flat if flat is not None
@@ -89,9 +91,7 @@ def init_state(rule: AggregatorRule, template: Any,
     center: Any = ()
     bus: Any = ()
     reputation: Any = ()
-    if "obs" in rule.state_fields:
-        raise NotImplementedError(
-            "the obs- telemetry ring is not ported yet (ROADMAP item 4)")
+    obs: Any = ()
     if "history" in rule.state_fields:
         w = rule.history_window
         if not w or w < 1:
@@ -112,5 +112,11 @@ def init_state(rule: AggregatorRule, template: Any,
         n = leaves[0].shape[0]
         reputation = torch.ones((n,) + tuple(rep_dims),
                                 dtype=torch.float32, device=dev)
+    if "obs" in rule.state_fields:
+        from repro_torch.obs.buffer import (DEFAULT_OBS_CAPACITY,
+                                            init_metrics_buffer)
+        obs = init_metrics_buffer(
+            rule.obs_capacity or DEFAULT_OBS_CAPACITY, leaves[0].shape[0],
+            device=dev)
     return AggState(step=0, history=history, center=center, bus=bus,
-                    reputation=reputation)
+                    reputation=reputation, obs=obs)

@@ -35,7 +35,7 @@ Distance backends (``distance_backend=``):
             lowering runs unchanged over K1;
   "auto"    "xla": the reference picks its kernel only for a mesh with a
             model axis, and the sharded runtime is not ported (ROADMAP
-            item 9), so ``mesh`` must be ``None``.
+            item 6), so ``mesh`` must be ``None``.
 """
 from __future__ import annotations
 
@@ -102,7 +102,7 @@ def resolve_distance_backend(distance_backend: str, mesh=None) -> str:
       distance_backend: ``"xla"`` | ``"pallas"`` | ``"fused"`` |
         ``"auto"`` (see the module docstring; ``"pallas"`` names the
         port's K1 kernel).
-      mesh: must be ``None``: the sharded runtime is ROADMAP item 9.
+      mesh: must be ``None``: the sharded runtime is ROADMAP item 6.
 
     Returns:
       ``"xla"``, ``"pallas"`` or ``"fused"``; ``"auto"`` resolves to
@@ -113,7 +113,7 @@ def resolve_distance_backend(distance_backend: str, mesh=None) -> str:
     if mesh is not None:
         raise NotImplementedError(
             "mesh= needs the sharded runtime, which is not ported yet "
-            "(ROADMAP item 9)")
+            "(ROADMAP item 6)")
     if distance_backend == "auto":
         return "xla"
     if distance_backend not in ("xla", "pallas", "fused"):
@@ -217,7 +217,7 @@ def distributed_aggregate(tree: Any, f: int, gar: str = "bulyan-krum", *,
         :func:`coordinate_phase_nd`).
       distance_backend: ``"xla"`` | ``"pallas"`` | ``"fused"`` |
         ``"auto"`` (see the module docstring).
-      mesh: must be ``None`` (ROADMAP item 9).
+      mesh: must be ``None`` (ROADMAP item 6).
       state: carried ``AggState`` of a stateful rule (``None``
         zero-initializes one); stateless rules ignore it.
       history_window: ``buffered-*`` window (``None``: the registry's

@@ -37,6 +37,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dist.async_train import (delivery_mask, init_bus,
                                           resolve_tau, staleness_excess,
                                           update_bus)
+from repro_torch.obs.buffer import drain
 from repro_torch.obs.schema import (async_extras, core_metrics,
                                     selection_weight)
 from repro_torch.optim import Optimizer
@@ -229,8 +230,8 @@ class ByzantineTrainer:
     A stateful rule's ``AggState`` is owned by the trainer
     (``self.agg_state``) and carried across ``run`` calls.  When
     ``attack_until`` switches from n rows to n_honest, the row-count
-    dependent buffers (the history window, the reputation scores)
-    restart; the clipping center survives.
+    dependent buffers (the history window, the reputation scores, the
+    forensics ring) restart; the clipping center survives.
 
     Args:
       loss_fn: ``loss_fn(params, x, y) -> scalar``.
@@ -286,7 +287,8 @@ class ByzantineTrainer:
             fn = self._step_attacked if use_attack else self._step_clean
             if self._stateful and use_attack != self._attack_mode:
                 self._attack_mode = use_attack
-                if {"history", "reputation"} & set(self._rule.state_fields):
+                if ({"history", "reputation", "obs"}
+                        & set(self._rule.state_fields)):
                     rows = (self.spec.n_workers if use_attack
                             else self.spec.n_honest)
                     self.agg_state = init_flat_agg_state(
@@ -311,12 +313,15 @@ class ByzantineTrainer:
         self.history.append(rec)
 
     def telemetry(self):
-        """The aggregation-forensics ring of the ``obs-`` rules, which
-        are not ported yet: raises ``NotImplementedError`` (ROADMAP
-        item 4)."""
-        raise NotImplementedError(
-            "telemetry needs the obs- rules, which are not ported yet "
-            "(ROADMAP item 4)")
+        """Drain the carried aggregation-forensics ring to host numpy.
+
+        Returns:
+          ``repro_torch.obs.buffer.drain``'s dict (``pushed`` /
+          ``records`` / ``selection_frequency``); empty when the spec was
+          built without ``telemetry=True``.
+        """
+        obs = self.agg_state.obs if self.agg_state is not None else ()
+        return drain(obs)
 
 
 # ---------------------------------------------------------------------------

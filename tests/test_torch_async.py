@@ -407,8 +407,12 @@ class TestAsyncTrainer:
                                                     for h in jtr.history]
         assert [h["staleness_max"] for h in ttr.history] == [
             h["staleness_max"] for h in jtr.history]
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            ttr.telemetry()
+        # telemetry off: both drains are empty
+        tel, jtel = ttr.telemetry(), jtr.telemetry()
+        assert (tel["pushed"], tel["records"]) == (jtel["pushed"],
+                                                   jtel["records"]) == (0,
+                                                                        [])
+        assert tel["selection_frequency"].shape == (0,)
 
     def test_sync_trainer_threads_the_state(self):
         """The synchronous trainer carries a stateful rule's state across

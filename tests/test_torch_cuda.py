@@ -482,3 +482,90 @@ def test_async_trainer_at_tau_zero_is_the_sync_trainer(card):
         tr.run(ByzantineBatcher("mnist", 9, 4, seed=1), 3)
         out.append(tr.params)
     assert all(torch.equal(out[0][k], out[1][k]) for k in out[0])
+
+
+# ---------------------------------------------------------------------------
+# telemetry and the leeway meter on the card
+# ---------------------------------------------------------------------------
+
+def test_obs_is_off_equals_on_through_k5(card):
+    """``obs-fused-bulyan-krum`` on a Fig. 4 stack (n = 39, f = 9): the
+    result bit for bit ``fused-bulyan-krum``'s, the same launches, and
+    the ring row against ``dense_diagnostics`` on a CPU copy at 1e-4."""
+    from repro_torch.agg.registry import resolve_rule
+    from repro_torch.agg.state import init_state
+    from repro_torch.obs.buffer import drain
+    from repro_torch.obs.forensics import dense_diagnostics
+    n, f = 39, 9
+    x = _stack(n, 79_510, torch.float32, card, seed=6)
+    x[n - f:] = -x[:n - f].mean(dim=0)
+    obs = resolve_rule("obs-fused-bulyan-krum")
+    state = init_state(obs, x)
+    counts = []
+    for rule, args in ((resolve_rule("fused-bulyan-krum"), ()),
+                       (obs, (state,))):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = rule.dense_fn(x, f, *args)
+        torch.cuda.synchronize()
+        counts.append(dict(_build.LAUNCHES))
+        if args:
+            got, state = out
+        else:
+            want = out
+    assert counts[0] == counts[1]
+    assert counts[1]["fused_aggregate"] == 3
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    row = drain(state.obs)["records"][0]
+    ref = dense_diagnostics(
+        x.cpu(), want.gradient.cpu(), want.selected.cpu(),
+        want.scores.cpu(), f, 1, torch.ones(n), torch.zeros(n))
+    for fld, v in ref._asdict().items():
+        if fld in ("selected", "scores", "step"):
+            assert torch.equal(torch.as_tensor(row[fld]), v), fld
+        else:
+            assert _rel(torch.as_tensor(row[fld]), v) <= 1e-4, fld
+
+
+def test_obs_fused_tree_path(card):
+    """``obs-fused-bulyan-krum`` through the tree engine's ``fused``
+    backend: leaves bit for bit ``fused-bulyan-krum``'s, the ring row
+    against ``tree_diagnostics`` on the CPU at 1e-4."""
+    from repro_torch.dist.robust import distributed_aggregate
+    from repro_torch.obs.buffer import drain
+    from repro_torch.obs.forensics import tree_diagnostics
+    n, f = 39, 9
+    x = _stack(n, 6000, torch.float32, card, seed=7)
+    # contiguous leaves, as vmap(grad) gives them (the kernel wrappers
+    # take contiguous stacks only)
+    tree = {"a": x[:, :1000].reshape(n, 10, 100).contiguous(),
+            "b": x[:, 1000:5990].contiguous(), "c": x[:, 5990:].contiguous()}
+    want, wres = distributed_aggregate(tree, f, "fused-bulyan-krum",
+                                       distance_backend="fused")
+    got, gres, state = distributed_aggregate(tree, f, "obs-bulyan-krum",
+                                             distance_backend="fused")
+    for k in tree:
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(gres.selected, wres.selected)
+    row = drain(state.obs)["records"][0]
+    ref = tree_diagnostics(
+        [tree[k].cpu() for k in sorted(tree)],
+        [want[k].cpu() for k in sorted(tree)], wres.selected.cpu(),
+        wres.scores.cpu(), f, 1, torch.ones(n), torch.zeros(n))
+    for fld, v in ref._asdict().items():
+        assert _rel(torch.as_tensor(row[fld]), v) <= 1e-4, fld
+
+
+def test_leeway_point_at_the_mlp_width(card):
+    """The leeway meter at d = 1024 and 79,510 on the card:
+    ``fused-krum``'s margin equals ``krum``'s (K1, select and K4 ran)."""
+    from repro_torch.audit.leeway import measure_leeway
+    _build.reset_launches()
+    rep = measure_leeway(rules=("krum", "fused-krum"),
+                         dims=(1024, 79_510), device=card)
+    assert _build.LAUNCHES["fused_aggregate"] == 6   # 3 per rung
+    for i in range(2):
+        got = rep["rules"]["fused-krum"]["margin_abs"][i]
+        want = rep["rules"]["krum"]["margin_abs"][i]
+        assert abs(got - want) <= 1e-4 * abs(want)
+    assert rep["gamma"]["krum"]["values"][1] > 100.0

@@ -252,12 +252,8 @@ class TestRegistry:
                                       "reputation-krum", "obs-krum",
                                       "brute", "centered_clip"])
     def test_unported_families_raise(self, name):
-        """Only the telemetry family is still unported; the others resolve
-        with the reference's contract."""
-        if name.startswith("obs-"):
-            with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-                treg.resolve_rule(name)
-            return
+        """Every family is ported now, the telemetry family included:
+        each resolves with the reference's contract."""
         t, j = treg.resolve_rule(name), jreg.resolve_rule(name)
         for f in (0, 2):
             assert t.min_n(f) == j.min_n(f)

@@ -328,9 +328,15 @@ class TestResolver:
     @pytest.mark.parametrize("name", ["obs-krum", "stale-obs-krum",
                                       "obs-stale-fused-bulyan-krum"])
     def test_obs_waits_for_telemetry(self, name):
-        jreg.resolve_rule(name)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            treg.resolve_rule(name)
+        """The telemetry family is ported: each nesting resolves with the
+        reference's contract."""
+        j, t = jreg.resolve_rule(name), treg.resolve_rule(name)
+        assert (t.name, t.stateful, t.state_fields, t.history_window,
+                t.invariants, t.obs_capacity, t.tree_fn is None) == (
+            j.name, j.stateful, j.state_fields, j.history_window,
+            j.invariants, j.obs_capacity, j.tree_fn is None)
+        for f in (0, 2):
+            assert t.min_n(f) == j.min_n(f)
 
     def test_value_error_texts(self):
         pairs = [

@@ -143,17 +143,16 @@ def test_metric_schema_matches_reference():
 
 
 def test_stateful_and_unported_rules_raise():
-    """The stateful rules build a step with the state in its signature;
-    the telemetry family (not ported) raises, naming its ROADMAP item."""
+    """The stateful rules build a step with the state in its signature,
+    the telemetry family (``obs-krum``, or ``telemetry=True``) included,
+    as in the reference."""
     import inspect
     opt = get_optimizer("sgd", 0.1)
-    for gar in ("buffered-krum", "reputation-krum"):
+    for kw in ({"gar": "buffered-krum"}, {"gar": "reputation-krum"},
+               {"gar": "obs-krum"}, {"gar": "krum", "telemetry": True}):
         step = make_byzantine_step(_tloss, opt, AggSpec(n_workers=9, f=1,
-                                                        gar=gar))
+                                                        **kw))
         assert list(inspect.signature(step).parameters)[-1] == "agg_state"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        make_byzantine_step(_tloss, opt, AggSpec(n_workers=9, f=1,
-                                                 gar="obs-krum"))
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
@@ -165,6 +164,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import repro_torch.data, repro_torch.optim\n"
         "import repro_torch.agg, repro_torch.core, repro_torch.dist\n"
         "import repro_torch.obs, repro_torch.training\n"
+        "import repro_torch.audit, repro_torch.audit.__main__\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib') or "
         "m == 'repro' or m.startswith('repro.')]\n"

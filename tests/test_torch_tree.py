@@ -410,7 +410,7 @@ class TestErrors:
             check_quorum(gar, n, f, distributed=distributed)
 
     def test_mesh_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
             robust.distributed_aggregate(_to_torch(_tree(MULTI)), F, "krum",
                                          mesh=object())
 
