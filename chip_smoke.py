@@ -113,7 +113,32 @@ Phases, in order; any failure exits nonzero before the last line:
    per rung, seconds per rung; (7e) the quick audit sweep on CUDA
    tensors: no violation, the CPU run's case counts per section, the
    ``fp32`` section's kernel launches, seconds per section.
-8. One JSON line of per-kernel measurements, then the result line
+8. The LLM path, ``repro_torch.dist.train.make_train_step`` over the
+   model zoo (still with cuDNN deterministic): (8a) gemma3-1b at its
+   published widths (d_model 1152, 4 heads, MQA, head_dim 256, geglu
+   d_ff 6912, vocab 262,144, window 512, tied embeddings, fp32) with its
+   26 layers cut to 8 (one period of 5 swa + 1 attn, then the 2 tail swa
+   layers): 516,705,408 parameters in 74 leaves, n = 7, f = 1,
+   ``bulyan-krum`` over the ``fused`` backend, ``omniscient_linf``,
+   AdamW 3e-4, one 1,024-token sequence per worker from ``lm_batches``,
+   per-worker gradients one worker per ``vmap`` pass.  Step 0's
+   submissions aggregated by the ``fused`` backend (K1 74, select 1, K4
+   74 launches exactly) against the ``xla`` backend on the same tree at
+   1e-4 of each leaf's largest entry with equal ``selected``; K1 and K4
+   on the (7, 301,989,888) embedding leaf against their plain versions
+   at 1e-4, and the selection exactly; a strided leaf through K1 and K4
+   against their plain versions; then 3 steps with the launch counters
+   reset before and read after (K1 74, select 1, K4 74 per step, K5
+   none), finite losses equal bit for bit to a second 3-step run's, ms
+   per step on the host clock (median of 3) and K1's and K4's device
+   time per step (``torch.profiler``).  (8b) one ``reduced()`` config
+   of each other family (llama3.2-3b, gemma-2b, qwen1.5-4b, mixtral and
+   llama4-scout MoE, mamba2 SSM, jamba hybrid, whisper audio, llama3.2
+   vision), 2 steps of ``fused-bulyan-krum`` over the ``fused`` backend
+   with step 0 against ``xla`` at 1e-4 and exact launches per step (every
+   reduced config is fp32).
+9. One JSON line of per-kernel measurements (phase 8's K1, selection and
+   K4 on the embedding leaf added), then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1738,6 +1763,344 @@ def phase_sweep(torch, rt):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the LLM path (the model zoo's train step)
+# ---------------------------------------------------------------------------
+
+#: 8a: gemma3-1b at its published widths, 26 layers cut to one full
+#: period (5 swa + 1 attn) and the two tail swa layers
+LLM_ARCH, LLM_LAYERS, LLM_LEAVES, LLM_PARAMS = "gemma3_1b", 8, 74, 516_705_408
+LLM_N, LLM_F, LLM_SEQ, LLM_STEPS = 7, 1, 1024, 3
+#: 8b: every other family, reduced
+LLM_OTHERS = ("llama3_2_3b", "gemma_2b", "qwen1_5_4b", "mixtral_8x22b",
+              "llama4_scout", "mamba2_130m", "jamba_1_5_large",
+              "whisper_medium", "llama3_2_vision")
+#: coordinates per slice of a plain version or a float64 reference run
+#: over the embedding leaf (a slice bounds the workspace)
+LLM_SLICE = 2 ** 25
+#: tile width of K1's plain version when it is timed on the embedding
+#: leaf: 288 tiles, where its default 4096 would launch 73,728 of them
+LLM_GRAM_TILE = 2 ** 20
+
+
+def llm_batch(np, rt, cfg, step: int, seq: int):
+    """One step's worker batch, ``(n, 1, seq)`` tokens and labels from
+    ``lm_batches``; the audio and vlm models get seeded frame or patch
+    embeddings as ``extra``."""
+    toks, labs = zip(*(rt["lm_batches"](cfg.vocab_size, 1, seq,
+                                        step * LLM_N + w, seed=7)
+                       for w in range(LLM_N)))
+    batch = {"tokens": np.stack(toks), "labels": np.stack(labs)}
+    if cfg.arch_type in ("audio", "vlm"):
+        rng = np.random.default_rng(step)
+        batch["extra"] = rng.standard_normal(
+            (LLM_N, 1, cfg.encoder_seq or cfg.vision_seq, cfg.d_model)
+        ).astype(np.float32)
+    return batch
+
+
+def llm_tree_check(torch, rt, grads, gar: str, n_leaves: int, what: str):
+    """One counted ``fused`` aggregation of a gradient tree against the
+    ``xla`` backend on the same tree: every leaf at 1e-4 of its largest
+    entry, ``selected`` equal, launches exactly K1 and K4 once per leaf
+    and the selection once.  Returns the fused aggregate and result."""
+    build = rt["build"]
+    (agg, res), counts = counted(torch, build, lambda: rt[
+        "distributed_aggregate"](grads, LLM_F, gar, distance_backend="fused"))
+    expect_launches(counts, expected_launches(build, "fused", "bulyan-krum",
+                                              n_leaves), what)
+    want, wres = rt["distributed_aggregate"](
+        grads, LLM_F, "bulyan-krum", distance_backend="xla",
+        window=LLM_SLICE)
+    expect(torch.equal(res.selected, wres.selected),
+           f"{what}: selected {res.selected.tolist()} vs xla "
+           f"{wres.selected.tolist()}")
+    worst = 0.0
+    for k, (a, b) in enumerate(zip(rt["tree_leaves"](agg),
+                                   rt["tree_leaves"](want))):
+        _, rel, _ = scaled_err(a, b)
+        worst = max(worst, rel)
+        expect(rel <= FP32_TOL, f"{what}: leaf {k} differs from xla by "
+               f"{rel:.3e} of its largest entry")
+    del want
+    return agg, res, worst
+
+
+def raw_dists_f64(torch, x):
+    """K1's function, ``sq_i + sq_j - 2 <x_i, x_j>`` summed over all
+    columns, in float64 over column slices: a reference whose own
+    rounding is far below K1's fp32 sums over 302M coordinates."""
+    out = 0.0
+    for c0 in range(0, x.shape[1], LLM_SLICE):
+        blk = x[:, c0:c0 + LLM_SLICE].double()
+        sq = torch.sum(blk * blk, dim=1)
+        out = out + (sq[:, None] + sq[None, :] - 2.0 * (blk @ blk.T))
+    return out
+
+
+def llm_embedding_leaf(torch, rt, ops, leaf, grads, timer):
+    """K1 on the 2.11e9-element embedding leaf against its function in
+    float64, K4 against its plain version over column slices, each at
+    1e-4 of the largest entry of what it is held to; the selection on
+    the tree's distances against its plain version; and each one's time
+    with its plain version, its bound and a library call."""
+    pg, fa = ops["pairwise_gram"], ops["fused_agg"]
+    n, d = leaf.shape[0], leaf[0].numel()
+    x = leaf.reshape(n, d)
+    raw = pg.pairwise_gram_partial(x)
+    exact = raw_dists_f64(torch, x)
+    k1_err, k1_rel, k1_scale = scaled_err(raw, exact)
+    expect(k1_rel <= FP32_TOL, f"8a K1 on the embedding leaf: {k1_rel:.3e} "
+           f"of {k1_scale:.3e}")
+    # the plain version's own fp32 rounding, shown beside K1's, not gated
+    _, plain_rel, _ = scaled_err(pg.pairwise_gram_partial_plain(
+        x, block_d=LLM_GRAM_TILE), exact)
+    dist = rt["pairwise_gram_tree"](grads)
+    w, sel, _ = fa.select_weights(dist, n, LLM_F, "bulyan-krum")
+    wp, selp, _ = fa.select_weights_plain(dist, n, LLM_F, "bulyan-krum")
+    expect(torch.equal(w, wp) and torch.equal(sel, selp),
+           "8a selection differs from its plain version")
+    got = fa.fused_coordinate(x, w, LLM_F, mode="bulyan-krum")
+    want = torch.cat([fa.fused_coordinate_plain(
+        x[:, c0:c0 + LLM_SLICE], wp, LLM_F, mode="bulyan-krum")
+        for c0 in range(0, d, LLM_SLICE)])
+    k4_err, k4_rel, k4_scale = scaled_err(got, want)
+    del want
+    expect(k4_rel <= FP32_TOL, f"8a K4 on the embedding leaf: {k4_rel:.3e} "
+           f"of {k4_scale:.3e}")
+    print(f"  ok  8a embedding leaf ({n}, {d:,}) = {n * d:,} elements: K1 "
+          f"{k1_err:.3e} off its float64 function ({k1_rel:.2e} of its "
+          f"largest entry, {k1_scale:.4e}; its plain version {plain_rel:.2e}"
+          f"), K4 {k4_err:.3e} off its plain "
+          f"version ({k4_rel:.2e} of {k4_scale:.4e}); selection equal",
+          flush=True)
+    reps = 5
+
+    def plain_k4():
+        for c0 in range(0, d, LLM_SLICE):
+            sl = slice(c0, c0 + LLM_SLICE)
+            fa.fused_coordinate_plain(x[:, sl], wp, LLM_F,
+                                      mode="bulyan-krum")
+
+    rows = {
+        "pairwise_gram_partial": dict(
+            ms=timer.ms(lambda: pg.pairwise_gram_partial(x), reps),
+            plain_ms=timer.ms(lambda: pg.pairwise_gram_partial_plain(
+                x, block_d=LLM_GRAM_TILE), 2, warmup=1),
+            library_ms=timer.ms(lambda: torch.mm(x, x.T), reps),
+            max_abs_err=k1_err, **bound(n, d, LLM_F,
+                                        "pairwise_gram_partial", 4)),
+        "select_weights": dict(
+            ms=timer.ms(lambda: fa.select_weights(dist, n, LLM_F,
+                                                  "bulyan-krum"), 20),
+            plain_ms=timer.ms(lambda: fa.select_weights_plain(
+                dist, n, LLM_F, "bulyan-krum"), 5),
+            library_ms=None, max_abs_err=0.0,
+            **bound(n, d, LLM_F, "select_weights", 4)),
+        "fused_coordinate": dict(
+            ms=timer.ms(lambda: fa.fused_coordinate(
+                x, w, LLM_F, mode="bulyan-krum"), reps),
+            plain_ms=timer.ms(plain_k4, 2, warmup=1),
+            library_ms=None, max_abs_err=k4_err,
+            **bound(n, d, LLM_F, "fused_coordinate", 4)),
+    }
+    for name, r in rows.items():
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
+        print(f"  8a {name:22s} kernel {r['ms']:9.3f} ms  plain "
+              f"{r['plain_ms']:9.3f} ms  library {lib} ms  bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']})", flush=True)
+    return rows
+
+
+def llm_strided_leaf(torch, ops, leaf):
+    """A strided ``(n, d)`` leaf (worker axis moved to the front, as a
+    ``vmap`` output can be) through K1, the selection and K4, against
+    their plain versions at 1e-4 of the largest entry, with equal
+    selections."""
+    pg, fa = ops["pairwise_gram"], ops["fused_agg"]
+    n = leaf.shape[0]
+    x = leaf.reshape(n, -1).T.contiguous().T
+    expect(not x.is_contiguous(), "8a: the strided leaf is contiguous")
+    raw = pg.pairwise_gram_partial(x)
+    _, rel, _ = scaled_err(raw, pg.pairwise_gram_partial_plain(x))
+    expect(rel <= FP32_TOL, f"8a K1 on a strided leaf: {rel:.3e}")
+    w, sel, _ = fa.select_weights(raw, n, LLM_F, "bulyan-krum")
+    wp, selp, _ = fa.select_weights_plain(raw, n, LLM_F, "bulyan-krum")
+    expect(torch.equal(w, wp) and torch.equal(sel, selp),
+           "8a: selection on a strided leaf differs")
+    _, rel4, _ = scaled_err(
+        fa.fused_coordinate(x, w, LLM_F, mode="bulyan-krum"),
+        fa.fused_coordinate_plain(x, wp, LLM_F, mode="bulyan-krum"))
+    expect(rel4 <= FP32_TOL, f"8a K4 on a strided leaf: {rel4:.3e}")
+    print(f"  ok  8a strided leaf {tuple(x.shape)} strides {x.stride()}: "
+          f"K1 {rel:.2e}, K4 {rel4:.2e}, selection equal", flush=True)
+
+
+def llm_run(torch, rt, cfg, spec, steps: int, seq: int, chunk, seed: int,
+            profile_last: bool = False):
+    """``steps`` steps of the zoo's train step from ``init_model(seed)``:
+    launch counters reset just before the first step and read just after
+    the last, each step timed on the host clock ending in
+    ``torch.cuda.synchronize()``; the last step optionally under
+    ``torch.profiler`` for K1's and K4's device time."""
+    import contextlib
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    build = rt["build"]
+    opt = rt["get_optimizer"]("adamw", 3e-4)
+    params = rt["init_model"](seed, cfg, device="cuda")
+    state = opt.init(params)
+    step = rt["make_train_step"](cfg, spec, opt, worker_chunk=chunk)
+    batches = [llm_batch(np, rt, cfg, t, seq) for t in range(steps)]
+    losses, step_ms, dev_ms = [], [], {}
+    torch.cuda.synchronize()
+    build.reset_launches()
+    for t in range(steps):
+        profiled = profile_last and t == steps - 1
+        with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batches[t])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        if profiled:
+            by_kernel = {}
+            for ev in prof.key_averages():
+                t_us = getattr(ev, "self_device_time_total", None)
+                if t_us is None:
+                    t_us = getattr(ev, "self_cuda_time_total", 0.0)
+                if t_us > 0:
+                    by_kernel[ev.key] = (by_kernel.get(ev.key, 0.0)
+                                         + t_us / 1e3)
+                for name, key in (("pairwise_gram_partial", "gram_kernel"),
+                                  ("fused_coordinate",
+                                   "combine_bulyan_kernel")):
+                    if key in ev.key:
+                        dev_ms[name] = dev_ms.get(name, 0.0) + t_us / 1e3
+            dev_ms["busy"] = sum(by_kernel.values())
+            dev_ms["top"] = sorted(by_kernel.items(),
+                                   key=lambda kv: -kv[1])[:8]
+        losses.append(float(m["loss"]))
+        expect(math.isfinite(losses[-1]), f"{cfg.name}: loss {losses[-1]}")
+    counts = dict(build.LAUNCHES)
+    del params, state
+    return {"losses": losses, "step_ms": step_ms, "launches": counts,
+            "device_ms": dev_ms}
+
+
+def phase_llm_full(torch, rt, ops, timer, smi):
+    """8a: gemma3-1b at full width, 8 layers, n = 7, f = 1,
+    ``bulyan-krum`` over the ``fused`` backend, ``omniscient_linf``,
+    AdamW 3e-4, one sequence of 1,024 tokens per worker."""
+    import dataclasses
+    import numpy as np
+    cfg = dataclasses.replace(rt["get_config"](LLM_ARCH),
+                              n_layers=LLM_LAYERS)
+    expect(cfg.n_periods == 1 and cfg.n_tail == 2,
+           f"8a: {cfg.n_periods} periods, {cfg.n_tail} tail layers")
+    spec = rt["DistByzantineSpec"](f=LLM_F, gar="bulyan-krum",
+                                   attack="omniscient_linf",
+                                   distance_backend="fused")
+    torch.cuda.reset_peak_memory_stats()
+    params = rt["init_model"](0, cfg, device="cuda")
+    leaves = rt["tree_leaves"](params)
+    n_params = sum(p.numel() for p in leaves)
+    expect(len(leaves) == LLM_LEAVES and n_params == LLM_PARAMS,
+           f"8a: {len(leaves)} leaves, {n_params:,} parameters")
+    expect(n_params == cfg.param_count(),
+           f"8a: param_count {cfg.param_count():,} vs {n_params:,}")
+    embed_d = cfg.vocab_size * cfg.d_model
+    print(f"  8a {cfg.name} x {LLM_LAYERS} layers: {n_params:,} parameters "
+          f"in {len(leaves)} leaves; embedding leaf ({LLM_N}, {embed_d:,}) "
+          f"= {LLM_N * embed_d:,} elements", flush=True)
+
+    # step 0's submissions: fused against xla, the embedding leaf, a
+    # strided leaf (comparison launches, outside the counted runs)
+    loss_fn = rt["make_loss_fn"](cfg)
+    batch = llm_batch(np, rt, cfg, 0, LLM_SEQ)
+    t0 = time.perf_counter()
+    _, grads = rt["byzantine_grads"](loss_fn, spec, params, batch, 0,
+                                     worker_chunk=1)
+    torch.cuda.synchronize()
+    print(f"  8a step-0 submissions in {time.perf_counter() - t0:.2f} s; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
+          flush=True)
+    _, _, worst = llm_tree_check(torch, rt, grads, "bulyan-krum",
+                                 LLM_LEAVES, "8a step 0")
+    print(f"  ok  8a step 0: fused == xla at {worst:.2e} of each leaf's "
+          f"largest entry, selected equal, launches K1 {LLM_LEAVES}, "
+          f"select 1, K4 {LLM_LEAVES}", flush=True)
+    rows = llm_embedding_leaf(torch, rt, ops, grads["embed"]["table"],
+                              grads, timer)
+    llm_strided_leaf(torch, ops, grads["final_norm"]["scale"])
+    del grads, params, leaves
+    torch.cuda.empty_cache()
+
+    run_a = llm_run(torch, rt, cfg, spec, LLM_STEPS, LLM_SEQ, 1, seed=0)
+    want = per_step({"pairwise_gram_partial": LLM_LEAVES,
+                     "select_weights": 1,
+                     "fused_coordinate": LLM_LEAVES}, LLM_STEPS)
+    expect_launches(run_a["launches"], want, "8a 3 steps")
+    run_b = llm_run(torch, rt, cfg, spec, LLM_STEPS, LLM_SEQ, 1, seed=0,
+                    profile_last=True)
+    expect(run_a["losses"] == run_b["losses"],
+           f"8a: losses {run_a['losses']} vs a second run "
+           f"{run_b['losses']}")
+    med = statistics.median(run_a["step_ms"])
+    print(f"  ok  8a 3 steps: losses {run_a['losses']} finite and equal to "
+          f"a second run's bit for bit; launches {run_a['launches']} "
+          f"(K1 {LLM_LEAVES}, select 1, K4 {LLM_LEAVES} per step)",
+          flush=True)
+    print(f"  8a ms per step: median {med:.1f} of "
+          f"{[round(t, 1) for t in run_a['step_ms']]} (second run "
+          f"{[round(t, 1) for t in run_b['step_ms']]}); device time per "
+          f"step K1 {run_b['device_ms'].get('pairwise_gram_partial', 0):.3f}"
+          f" ms, K4 {run_b['device_ms'].get('fused_coordinate', 0):.3f} ms "
+          f"(torch.profiler, last step of the second run); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({smi})",
+          flush=True)
+    busy, last = run_b["device_ms"]["busy"], run_b["step_ms"][-1]
+    print(f"  8a profiled step: device busy {busy:.1f} ms of {last:.1f} ms "
+          f"({100 * busy / last:.1f}%); top device time:", flush=True)
+    for key, ms in run_b["device_ms"]["top"]:
+        print(f"    {ms:9.3f} ms  {key[:110]}", flush=True)
+    return {"rows": rows, "launches": run_a["launches"], "step_ms": med,
+            "device_ms": run_b["device_ms"]}
+
+
+def phase_llm_reduced(torch, rt):
+    """8b: one reduced config of every other family, 2 steps of
+    ``fused-bulyan-krum`` over the ``fused`` backend under
+    ``omniscient_linf``, step 0's aggregate against ``xla`` and exact
+    launches per step."""
+    import numpy as np
+    spec = rt["DistByzantineSpec"](f=LLM_F, gar="fused-bulyan-krum",
+                                   attack="omniscient_linf",
+                                   distance_backend="fused")
+    seq = 64
+    for arch in LLM_OTHERS:
+        cfg = rt["get_reduced"](arch)
+        expect(cfg.param_dtype == "float32", f"8b {arch}: {cfg.param_dtype}")
+        params = rt["init_model"](0, cfg, device="cuda")
+        n_leaves = len(rt["tree_leaves"](params))
+        _, grads = rt["byzantine_grads"](rt["make_loss_fn"](cfg), spec,
+                                         params, llm_batch(np, rt, cfg, 0,
+                                                           seq), 0)
+        _, _, worst = llm_tree_check(torch, rt, grads, "fused-bulyan-krum",
+                                     n_leaves, f"8b {arch} step 0")
+        del grads, params
+        run = llm_run(torch, rt, cfg, spec, 2, seq, None, seed=0)
+        want = per_step({"pairwise_gram_partial": n_leaves,
+                         "select_weights": 1,
+                         "fused_coordinate": n_leaves}, 2)
+        expect_launches(run["launches"], want, f"8b {arch} 2 steps")
+        print(f"  ok  8b {cfg.name} ({cfg.arch_type}, {n_leaves} leaves): "
+              f"step 0 fused == xla at {worst:.2e}, selected equal; losses "
+              f"{[round(v, 4) for v in run['losses']]}; launches per step "
+              f"K1 {n_leaves}, select 1, K4 {n_leaves}; ms per step "
+              f"{[round(t, 1) for t in run['step_ms']]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 def print_ptxas(log: pathlib.Path) -> None:
     """One line per kernel of an ``-Xptxas -v`` build log: its (mangled)
@@ -1796,6 +2159,10 @@ def main() -> int:
     from repro_torch.obs.forensics import dense_diagnostics, tree_diagnostics
     from repro_torch.optim import fading_lr, get_optimizer
     from repro_torch.training import trainer
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.dist import train as llm_train
+    from repro_torch.models import init_model
     rt = dict(simple=simple, trainer=trainer, fused_agg=fused_agg,
               build=_build, AggSpec=AggSpec, unflatten=unflatten,
               ByzantineBatcher=ByzantineBatcher, mnist_like=mnist_like,
@@ -1809,7 +2176,14 @@ def main() -> int:
               init_state=init_state, update_bus=update_bus, drain=drain,
               dense_diagnostics=dense_diagnostics,
               tree_diagnostics=tree_diagnostics, leeway=leeway,
-              sweep=sweep, FUSED_BASES=FUSED_BASES)
+              sweep=sweep, FUSED_BASES=FUSED_BASES,
+              get_config=get_config, get_reduced=get_reduced,
+              lm_batches=lm_batches, init_model=init_model,
+              DistByzantineSpec=llm_train.DistByzantineSpec,
+              make_train_step=llm_train.make_train_step,
+              make_loss_fn=llm_train.make_loss_fn,
+              byzantine_grads=llm_train.byzantine_grads,
+              pairwise_gram_tree=pairwise_gram.pairwise_gram_tree)
     ops = {"fused_agg": fused_agg, "pairwise_gram": pairwise_gram,
            "bulyan_select": bulyan_select, "coord_stats": coord_stats}
 
@@ -1887,6 +2261,14 @@ def main() -> int:
     print(f"  phase 7 took {time.perf_counter() - t7:.1f} s ({smi})",
           flush=True)
 
+    print("== phase 8: the LLM path (dist/train.py over the model zoo)",
+          flush=True)
+    t8 = time.perf_counter()
+    llm = phase_llm_full(torch, rt, ops, timer, smi)
+    phase_llm_reduced(torch, rt)
+    print(f"  phase 8 took {time.perf_counter() - t8:.1f} s ({smi})",
+          flush=True)
+
     kernels = []
     for model, kind in (("mlp", "mnist"), ("cnn", "cifar")):
         for name, r in timings[model].items():
@@ -1905,6 +2287,16 @@ def main() -> int:
                 "max_abs_err": worst[name], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for name, r in llm["rows"].items():
+        launches = llm["launches"][name]
+        expect(launches > 0, f"{name} was not launched on the LLM path")
+        kernels.append({
+            "name": f"{name}@{LLM_ARCH}", "route": "cuda",
+            "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

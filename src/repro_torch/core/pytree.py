@@ -10,27 +10,30 @@ a registered rule to a worker-stacked dict.
 from __future__ import annotations
 
 import math
-from typing import Any, List, Tuple
+from typing import Any, Callable, List, Tuple
 
 import torch
 
-__all__ = ["aggregate_pytree", "stack_flatten", "tree_leaves",
+__all__ = ["aggregate_pytree", "stack_flatten", "tree_leaves", "tree_map",
            "tree_unflatten", "unflatten"]
 
 
 def tree_leaves(tree: Any) -> List[torch.Tensor]:
-    """Leaves of a parameter dict in sorted-key order (JAX's tree order).
+    """Leaves of a (nested) parameter dict in JAX's tree order.
 
     Args:
-      tree: a tensor, a dict of tensors or a list / tuple of tensors.
+      tree: a tensor, or a dict / list / tuple of trees (the model zoo's
+        parameters nest dicts, e.g. ``{"periods": {"s0": {...}}}``).
 
     Returns:
-      The leaf tensors: keys sorted for a dict, in order for a sequence.
+      The leaf tensors, depth first: keys sorted at every dict level,
+      sequences in order.  Everything that is not a dict, list or tuple
+      is a leaf.
     """
     if isinstance(tree, dict):
-        return [tree[k] for k in sorted(tree)]
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     if isinstance(tree, (list, tuple)):
-        return list(tree)
+        return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
 
 
@@ -39,19 +42,43 @@ def tree_unflatten(tree: Any, leaves: List[torch.Tensor]) -> Any:
     :func:`tree_leaves`).
 
     Args:
-      tree: the tensor, dict or list / tuple the leaves came from.
+      tree: the tree the leaves came from (its structure is read, its
+        leaves ignored).
       leaves: replacement leaves in :func:`tree_leaves` order.
 
     Returns:
-      A tree of the same kind: a dict with ``tree``'s keys, a list /
-      tuple, or the single leaf.
+      A tree of the same structure: dicts keep ``tree``'s key order,
+      lists / tuples their type.
     """
-    if isinstance(tree, dict):
-        by_key = dict(zip(sorted(tree), leaves))
-        return {k: by_key[k] for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(leaves)
-    return leaves[0]
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            by_key = {k: build(t[k]) for k in sorted(t)}
+            return {k: by_key[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            items = [build(x) for x in t]
+            return type(t)(*items) if hasattr(t, "_fields") else type(t)(
+                items)
+        return next(it)
+
+    return build(tree)
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leaf by leaf over trees of one structure.
+
+    Args:
+      fn: ``fn(leaf, *other_leaves) -> new leaf``.
+      tree: the tree whose structure the result takes.
+      *rest: trees of the same structure.
+
+    Returns:
+      ``tree``'s structure with ``fn`` of the corresponding leaves.
+    """
+    others = [tree_leaves(t) for t in rest]
+    return tree_unflatten(tree, [fn(*xs) for xs in
+                                 zip(tree_leaves(tree), *others)])
 
 
 def stack_flatten(stacked_tree: Any) -> Tuple[torch.Tensor, Any]:

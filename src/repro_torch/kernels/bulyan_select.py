@@ -68,7 +68,7 @@ def bulyan_select(selected: torch.Tensor, f: int, *,
 
     Args:
       selected: ``(theta, d)`` stack of the theta selected gradients,
-        fp32 or bf16, theta <= 64, contiguous on the card.
+        fp32 or bf16, theta <= 64, any strides.
       f: Byzantine bound; requires ``beta = theta - 2f >= 1``.
       block_d: tile width of the plain version, for a CPU tensor only
         (``None``: its default); a CUDA tensor with a ``block_d`` raises.
@@ -85,6 +85,8 @@ def bulyan_select(selected: torch.Tensor, f: int, *,
         return bulyan_select_plain(selected, f, **kw)
     if selected.device.type != "cuda":
         raise ValueError(f"unsupported device {selected.device}")
+    # the kernel reads rows: a strided stack is copied once, here
+    selected = selected.contiguous()
     _check_stack(selected, "bulyan_select")
     out = torch.empty((d,), dtype=torch.float32, device=selected.device)
     lib = _build.library("bulyan_select")

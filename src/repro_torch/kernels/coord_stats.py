@@ -69,7 +69,7 @@ def coord_stats(grads: torch.Tensor, f: int, *,
 
     Args:
       grads: ``(n, d)`` worker-stacked flat gradients, fp32 or bf16,
-        n <= 64, contiguous on the card; requires ``n > 2f``.
+        n <= 64, any strides; requires ``n > 2f``.
       f: trim count per side.
       block_d: tile width of the plain version, for a CPU tensor only
         (``None``: its default); a CUDA tensor with a ``block_d`` raises.
@@ -86,6 +86,7 @@ def coord_stats(grads: torch.Tensor, f: int, *,
         return coord_stats_plain(grads, f, **kw)
     if grads.device.type != "cuda":
         raise ValueError(f"unsupported device {grads.device}")
+    grads = grads.contiguous()  # the kernel reads rows: copy a strided stack
     _check_stack(grads, "coord_stats")
     med = torch.empty((d,), dtype=torch.float32, device=grads.device)
     trim = torch.empty((d,), dtype=torch.float32, device=grads.device)

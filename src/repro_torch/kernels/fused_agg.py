@@ -225,9 +225,9 @@ def select_weights(dist2: torch.Tensor, n: int, f: int, mode: str):
     if dist2.dtype != torch.float32 or tuple(dist2.shape) != (n, n):
         raise ValueError(f"select_weights takes a float32 ({n}, {n}) "
                          f"matrix, got {dist2.dtype} {tuple(dist2.shape)}")
-    if not dist2.is_contiguous() or n > MAX_N:
-        raise ValueError(f"select_weights needs a contiguous matrix with "
-                         f"n <= {MAX_N}")
+    if n > MAX_N:
+        raise ValueError(f"select_weights needs n <= {MAX_N}")
+    dist2 = dist2.contiguous()  # the kernel reads rows: copy a strided matrix
     dev = dist2.device
     w = torch.empty((_weight_rows(n, f, mode), n), dtype=torch.float32,
                     device=dev)
@@ -290,7 +290,8 @@ def fused_coordinate(stack: torch.Tensor, weights: Optional[torch.Tensor],
     """Selection-combine + coordinate phase of one ``(n, d)`` stack.
 
     Args:
-      stack: ``(n, d)`` worker rows, fp32 or bf16, n <= 64.
+      stack: ``(n, d)`` worker rows, fp32 or bf16, n <= 64, any
+        strides.
       weights: ``(theta_w, n)`` f32 weights from :func:`select_weights`;
         ``None`` for the coordinate-only modes.
       f: Byzantine bound.
@@ -305,6 +306,7 @@ def fused_coordinate(stack: torch.Tensor, weights: Optional[torch.Tensor],
     n, d = stack.shape
     _check_mode_shape(n, f, mode)
     coord_only = _check_weights(mode, weights)
+    stack = stack.contiguous()  # the kernel reads rows: copy a strided stack
     _check_stack(stack, "fused_coordinate")
     theta_w = 0 if coord_only else _weight_rows(n, f, mode)
     if not coord_only:
@@ -366,7 +368,7 @@ def fused_aggregate(grads: torch.Tensor, f: int, *,
     """Robust-aggregate a flat worker stack (K5).
 
     Args:
-      grads: ``(n, d)`` worker rows, fp32 or bf16, n <= 64.
+      grads: ``(n, d)`` worker rows, fp32 or bf16, n <= 64, any strides.
       f: Byzantine bound.
       mode: one of :data:`FUSED_MODES` (``"krum"``, ``"multikrum"``,
         ``"geomed"``, ``"cwmed"``, ``"trimmed_mean"``, ``"bulyan-krum"``,
@@ -385,6 +387,7 @@ def fused_aggregate(grads: torch.Tensor, f: int, *,
         return fused_aggregate_plain(grads, f, mode=mode, **kw)
     n = grads.shape[0]
     _check_mode_shape(n, f, mode)
+    grads = grads.contiguous()  # one copy for both reads of a strided stack
     before = sum(_build.LAUNCHES[k] for k in _K5_PARTS)
     if mode in COORD_MODES:
         out = _coord_result(fused_coordinate(grads, None, f, mode=mode), n)

@@ -115,7 +115,7 @@ def pairwise_gram_partial(slab: torch.Tensor, *,
 
     Args:
       slab: ``(n, *dims)`` worker-stacked coordinates, fp32 or bf16,
-        n <= 64; trailing dims are flattened.
+        n <= 64, any strides; trailing dims are flattened.
       block_d: tile width of the plain version, for a CPU tensor only
         (``None``: its default); a CUDA tensor with a ``block_d`` raises.
 
@@ -131,6 +131,9 @@ def pairwise_gram_partial(slab: torch.Tensor, *,
         return pairwise_gram_partial_plain(x, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    # the kernel reads rows: a strided stack (a transposed leaf, a vmap
+    # output with its worker axis moved) is copied once, here
+    x = x.contiguous()
     _check_stack(x, "pairwise_gram_partial")
     d = x.shape[1]
     chunk, n_chunks = _chunking(d)

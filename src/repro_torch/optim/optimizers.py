@@ -2,8 +2,8 @@
 ``repro/optim/optimizers.py``).
 
 Each optimizer is an ``Optimizer(init, update)`` pair over parameter
-dicts: ``update(grads, state, params) -> (new_params, new_state)``,
-functional as in the reference (new tensors, nothing updated in place).
+dicts, flat or nested (the model zoo's): ``update(grads, state, params)
+-> (new_params, new_state)``, functional as in the reference (new tensors, nothing updated in place).
 The learning rate is a schedule ``step -> lr`` evaluated on the
 optimizer's step count, a Python int.  The paper (§5.1) uses plain SGD
 with ``eta(t) = eta0 * r / (t + r)``.
@@ -13,6 +13,8 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple, Union
 
 import torch
+
+from repro_torch.core.pytree import tree_leaves, tree_map
 
 __all__ = ["Optimizer", "adam", "adamw", "fading_lr", "get_optimizer",
            "momentum", "sgd"]
@@ -51,13 +53,9 @@ class Optimizer(NamedTuple):
     update: Callable[..., Any]
 
 
-def _tmap(fn, *dicts):
-    return {k: fn(*(t[k] for t in dicts)) for k in dicts[0]}
-
-
 def _on_params(x: torch.Tensor, params) -> torch.Tensor:
     """Move a 0-d schedule value to the device of the parameters."""
-    return x.to(next(iter(params.values())).device)
+    return x.to(tree_leaves(params)[0].device)
 
 
 def sgd(lr: Union[float, Schedule]) -> Optimizer:
@@ -76,7 +74,7 @@ def sgd(lr: Union[float, Schedule]) -> Optimizer:
 
     def update(grads, state, params):
         eta = _on_params(sched(state["step"]), params)
-        new = _tmap(lambda p, g: (p.to(_F32) - eta * g.to(_F32))
+        new = tree_map(lambda p, g: (p.to(_F32) - eta * g.to(_F32))
                     .to(p.dtype), params, grads)
         return new, {"step": state["step"] + 1}
 
@@ -97,13 +95,13 @@ def momentum(lr: Union[float, Schedule], beta: float = 0.9) -> Optimizer:
 
     def init(params):
         return {"step": 0,
-                "m": _tmap(lambda p: torch.zeros(p.shape, dtype=_F32,
+                "m": tree_map(lambda p: torch.zeros(p.shape, dtype=_F32,
                                                  device=p.device), params)}
 
     def update(grads, state, params):
         eta = _on_params(sched(state["step"]), params)
-        m = _tmap(lambda m, g: beta * m + g.to(_F32), state["m"], grads)
-        new = _tmap(lambda p, m: (p.to(_F32) - eta * m)
+        m = tree_map(lambda m, g: beta * m + g.to(_F32), state["m"], grads)
+        new = tree_map(lambda p, m: (p.to(_F32) - eta * m)
                     .to(p.dtype), params, m)
         return new, {"step": state["step"] + 1, "m": m}
 
@@ -128,14 +126,14 @@ def adam(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
 
     def init(params):
         z = lambda p: torch.zeros(p.shape, dtype=_F32, device=p.device)
-        return {"step": 0, "m": _tmap(z, params), "v": _tmap(z, params)}
+        return {"step": 0, "m": tree_map(z, params), "v": tree_map(z, params)}
 
     def update(grads, state, params):
         t = state["step"] + 1
         eta = _on_params(sched(state["step"]), params)
-        m = _tmap(lambda m, g: b1 * m + (1 - b1) * g.to(_F32),
+        m = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(_F32),
                   state["m"], grads)
-        v = _tmap(lambda v, g: b2 * v + (1 - b2) * torch.square(g.to(_F32)),
+        v = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.to(_F32)),
                   state["v"], grads)
         tf = torch.tensor(float(t), dtype=_F32)
         bc1 = _on_params(1 - torch.pow(torch.tensor(b1, dtype=_F32), tf),
@@ -149,7 +147,7 @@ def adam(lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999,
                 step = step + weight_decay * p.to(_F32)
             return (p.to(_F32) - eta * step).to(p.dtype)
 
-        new = _tmap(upd, params, m, v)
+        new = tree_map(upd, params, m, v)
         return new, {"step": t, "m": m, "v": v}
 
     return Optimizer(init, update)

@@ -200,8 +200,6 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     x = _stack(11, 300, torch.float32, card)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         pairwise_gram_partial(x.double())
-    with pytest.raises(ValueError, match="contiguous"):
-        fa.fused_coordinate(x.T.contiguous().T, None, 2, mode="cwmed")
     with pytest.raises(ValueError, match="n <= 64"):
         pairwise_gram_partial(_stack(65, 10, torch.float32, card))
 
@@ -536,8 +534,8 @@ def test_obs_fused_tree_path(card):
     from repro_torch.obs.forensics import tree_diagnostics
     n, f = 39, 9
     x = _stack(n, 6000, torch.float32, card, seed=7)
-    # contiguous leaves, as vmap(grad) gives them (the kernel wrappers
-    # take contiguous stacks only)
+    # contiguous leaves (strided ones are copied at the wrappers'
+    # boundary; test_strided_leaves_reach_the_kernels covers those)
     tree = {"a": x[:, :1000].reshape(n, 10, 100).contiguous(),
             "b": x[:, 1000:5990].contiguous(), "c": x[:, 5990:].contiguous()}
     want, wres = distributed_aggregate(tree, f, "fused-bulyan-krum",
@@ -569,3 +567,107 @@ def test_leeway_point_at_the_mlp_width(card):
         want = rep["rules"]["krum"]["margin_abs"][i]
         assert abs(got - want) <= 1e-4 * abs(want)
     assert rep["gamma"]["krum"]["values"][1] > 100.0
+
+
+def _strided(n, d, card, seed=0):
+    """An ``(n, d)`` stack with strides ``(1, n)``: the layout of a
+    ``vmap`` output whose worker axis was moved to the front."""
+    x = _stack(d, n, torch.float32, card, seed=seed).T
+    assert not x.is_contiguous()
+    return x
+
+
+@pytest.mark.parametrize("n,f,d", [(7, 1, 1152), (39, 9, 4097)])
+def test_strided_leaves_reach_the_kernels(card, n, f, d):
+    """K1, the selection, K4 and K2 / K3 take a strided stack (copied
+    once at the wrapper's boundary) and equal their plain versions at
+    1e-4 with equal selections; the tree engine's ``fused`` and
+    ``pallas`` backends take strided leaves.  On the parent tree every
+    kernel wrapper raised ``needs a contiguous (n, d) stack``."""
+    from repro_torch.dist.robust import distributed_aggregate
+    x = _strided(n, d, card)
+    _build.reset_launches()
+    raw = pairwise_gram_partial(x)
+    assert _build.LAUNCHES["pairwise_gram_partial"] == 1
+    assert _rel(raw, pairwise_gram_partial_plain(x)) <= 1e-4
+    w, sel, _ = fa.select_weights(raw.T, n, f, "bulyan-krum")
+    wp, selp, _ = fa.select_weights_plain(raw, n, f, "bulyan-krum")
+    assert torch.equal(w, wp) and torch.equal(sel, selp)
+    got = fa.fused_coordinate(x, w, f, mode="bulyan-krum")
+    assert _build.LAUNCHES["fused_coordinate"] == 1
+    assert _rel(got, fa.fused_coordinate_plain(x, wp, f,
+                                               mode="bulyan-krum")) <= 1e-4
+    agg, sel5, _ = fa.fused_aggregate(x, f, mode="bulyan-krum")
+    assert torch.equal(agg, got) and torch.equal(sel5[None], sel)
+    med, trim = coord_stats(x, f)
+    pmed, ptrim = coord_stats_plain(x, f)
+    assert _rel(med, pmed) <= 1e-4 and _rel(trim, ptrim) <= 1e-4
+    picked = x[: n - 2 * f]
+    assert _rel(bulyan_select(picked, f),
+                bulyan_select_plain(picked, f)) <= 1e-4
+    tree = {"a": x, "b": _strided(n, 300, card, seed=1)}
+    want, wres = distributed_aggregate(tree, f, "bulyan-krum",
+                                       distance_backend="xla")
+    for backend in ("pallas", "fused"):
+        out, res = distributed_aggregate(tree, f, "bulyan-krum",
+                                         distance_backend=backend)
+        assert torch.equal(res.selected, wres.selected), backend
+        for k in tree:
+            assert _rel(out[k], want[k]) <= 1e-4, (backend, k)
+
+
+def test_llm_step_on_the_card_matches_the_cpu(card):
+    """Two steps of the zoo's train step (reduced gemma3-1b, n = 7,
+    f = 1, ``fused-bulyan-krum`` under ``omniscient_linf``, momentum) on
+    the card against the same steps on the CPU (the kernels' plain
+    versions there): each leaf's change at 1e-4 of its largest off
+    Bulyan's window ties, equal ``byz_weight``, and K1 / select / K4
+    launched once per leaf / once / once per leaf per step."""
+    import numpy as np
+    from torch_llm_compare import close_change, window_ties
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.pytree import tree_leaves, tree_map
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.dist.train import (DistByzantineSpec, byzantine_grads,
+                                        make_loss_fn, make_train_step)
+    from repro_torch.models import init_model
+    from repro_torch.optim import get_optimizer
+    cfg = get_reduced("gemma3_1b")
+    n, f = 7, 1
+    spec = DistByzantineSpec(f=f, gar="fused-bulyan-krum",
+                             attack="omniscient_linf",
+                             distance_backend="fused")
+    opt = get_optimizer("momentum", 1e-2)
+    loss = make_loss_fn(cfg)
+    step = make_train_step(cfg, spec, opt)
+    init = init_model(0, cfg, device="cpu")
+    params = {dev: tree_map(lambda p: p.to(dev), init)
+              for dev in ("cpu", card)}
+    state = {dev: opt.init(p) for dev, p in params.items()}
+    ties = None
+    k = len(tree_leaves(init))
+    for t in range(2):
+        toks, labs = zip(*(lm_batches(cfg.vocab_size, 2, 32, t * n + w,
+                                      seed=7) for w in range(n)))
+        batch = {"tokens": np.stack(toks), "labels": np.stack(labs)}
+        subs = [tree_leaves(byzantine_grads(loss, spec, params[dev], batch,
+                                            t)[1]) for dev in params]
+        tie = window_ties(subs[0], subs[1], f)
+        ties = tie if ties is None else [a | b for a, b in zip(ties, tie)]
+        metrics = {}
+        for dev in params:
+            _build.reset_launches()
+            params[dev], state[dev], metrics[dev] = step(params[dev],
+                                                         state[dev], batch)
+            if dev != "cpu":
+                assert _build.LAUNCHES["pairwise_gram_partial"] == k
+                assert _build.LAUNCHES["select_weights"] == 1
+                assert _build.LAUNCHES["fused_coordinate"] == k
+        mc, mg = metrics["cpu"], metrics[card]
+        assert float(mc["byz_weight"]) == float(mg["byz_weight"])
+        assert abs(float(mc["loss"]) - float(mg["loss"])) <= 1e-4 * abs(
+            float(mc["loss"]))
+        for i, (a, b, p0) in enumerate(zip(tree_leaves(params["cpu"]),
+                                           tree_leaves(params[card]),
+                                           tree_leaves(init))):
+            close_change(b, a, p0, t + 1, ties[i], what=(t, i))
