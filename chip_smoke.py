@@ -112,7 +112,8 @@ Phases, in order; any failure exits nonzero before the last line:
    flagged, each ``fused-`` margin its base's at 1e-4, launches exact
    per rung, seconds per rung; (7e) the quick audit sweep on CUDA
    tensors: no violation, the CPU run's case counts per section, the
-   ``fp32`` section's kernel launches, seconds per section.
+   ``fp32`` section's kernel launches, the reference's 408
+   ``speculative`` cases, seconds per section.
 8. The LLM path, ``repro_torch.dist.train.make_train_step`` over the
    model zoo (still with cuDNN deterministic): (8a) gemma3-1b at its
    published widths (d_model 1152, 4 heads, MQA, head_dim 256, geglu
@@ -137,8 +138,37 @@ Phases, in order; any failure exits nonzero before the last line:
    vision), 2 steps of ``fused-bulyan-krum`` over the ``fused`` backend
    with step 0 against ``xla`` at 1e-4 and exact launches per step (every
    reduced config is fp32).
-9. One JSON line of per-kernel measurements (phase 8's K1, selection and
-   K4 on the embedding leaf added), then the result line
+9. Serving, ``repro_torch.serving.ServingEngine`` over the zoo's decode
+   path (``models/decode.py``) and ``dist/serve_robust.py``, with
+   ``AggSpec(f=1, gar="bulyan-krum", distance_backend="fused")``: (9a)
+   8a's gemma3-1b cut and seed, an ensemble of 7 replicas
+   (``replicate_params``, jitter 1e-3 from a CPU generator) with the
+   last one poisoned (``signflip``, scale 10), ``n_slots=4``,
+   ``cache_len=1024``, 6 seeded requests (prompts 32-256 tokens, 16-32
+   new tokens, so slots are reused).  Around every admission and decode
+   step the launches must read K1 1, select 1, K4 1 (one K5, whose
+   counter reads its 3 parts), K2 / K3 0, and the poisoned replica's
+   selection weight 0; the run's totals are the counters from 0.  The
+   first decode step's (7, 1,048,576) logits stack through ``fused``
+   against ``xla`` at 1e-4 of its largest entry with equal
+   ``selected``; a second run, request 0 served alone and a
+   ``telemetry=True`` run give the same streams bit for bit (``pushed``
+   equals the decode aggregations).  Readings: ms per decode step and
+   per admission, tokens/s, peak memory, one profiled step (device busy
+   share, K5's device time), whether ``average`` is steered (not gated),
+   and K1 / select / K4 / K5 on that stack against their plain versions
+   with their times.  (9b) speculative verify at llama3.2-3b's published
+   widths cut to 2 layers (595,344,384 parameters per replica; gemma3-1b's
+   swa slots fail ``verify_supported``): k = 1 equals the per-token engine
+   bit for bit; at k = 4 (draft on replica 0) each verify block launches
+   exactly 4 K5s, counts lie in [1, 4] and every emitted token sits at its
+   position's aggregated maximum; accept mean and agreement with the
+   per-token stream printed.  (9c) every family's ``reduced()`` config:
+   the robust prefill step and 4 robust decode steps, exact launches per
+   call, finite aggregates.
+10. One JSON line of per-kernel measurements (phase 8's K1, selection and
+   K4 on the embedding leaf and phase 9a's K1, selection, K4 and K5 on
+   the serving stack added), then the result line
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -193,6 +223,8 @@ K2_THETAS = (3, 8, 9, 16, 17, 21, 24, 25, 40, 48, 49, 64)
 #: the kernels of PR 11's training path (phase 3)
 TRAIN_KERNELS = ("pairwise_gram_partial", "select_weights",
                  "fused_coordinate", "fused_aggregate")
+#: the reference's ``speculative`` audit cases on the quick grid
+QUICK_SPECULATIVE = 408
 #: the rules the tree engine runs (phase 4)
 TREE_RULES = ("bulyan-krum", "bulyan-geomed", "krum", "multikrum",
               "geomed", "cwmed", "trimmed_mean", "average")
@@ -1750,7 +1782,9 @@ def phase_sweep(torch, rt):
     expect(cases == {k: v[0] for k, v in cpu.sections.items()},
            f"7e: case counts {cases} differ from the CPU's "
            f"{cpu.sections}")
-    expect("speculative" not in cases, "7e: a speculative section ran")
+    expect(cases.get("speculative") == QUICK_SPECULATIVE,
+           f"7e: speculative cases {cases.get('speculative')}, the "
+           f"reference's quick grid has {QUICK_SPECULATIVE}")
     expect(sum(launches["fp32"].values()) > 0,
            f"7e: the fp32 section launched no kernel: {launches['fp32']}")
     print(f"  ok  7e quick sweep on CUDA tensors: {report.cases} cases, 0 "
@@ -2101,6 +2135,450 @@ def phase_llm_reduced(torch, rt):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: serving (the zoo's decode path, the ensemble engine, verify)
+# ---------------------------------------------------------------------------
+
+#: 9a: 8a's cut and seed, an ensemble of 7 with the last replica poisoned
+SERVE_N, SERVE_F, SERVE_SLOTS, SERVE_CACHE = 7, 1, 4, 1024
+SERVE_GAR = "bulyan-krum"
+#: 9b: llama3.2-3b at its published widths, 28 layers cut to 2
+SPEC_ARCH, SPEC_LAYERS, SPEC_K, SPEC_PARAMS = "llama3_2_3b", 2, 4, 595_344_384
+#: the kernels K5 runs, and its counter's reading for one call
+K5_CALL = {"pairwise_gram_partial": 1, "select_weights": 1,
+           "fused_coordinate": 1, "fused_aggregate": 3}
+
+
+def serve_spec(rt, **kw):
+    return rt["AggSpec"](f=SERVE_F, gar=SERVE_GAR, distance_backend="fused",
+                         **kw)
+
+
+def serve_requests(np, vocab: int, count: int, seed: int, plen, new):
+    """``count`` requests ``(rid, prompt, max_new_tokens)`` from a seed."""
+    rng = np.random.default_rng(seed)
+    return [(rid, rng.integers(0, vocab, int(rng.integers(plen[0],
+                                                          plen[1] + 1))
+                               ).astype(np.int32),
+             int(rng.integers(new[0], new[1] + 1))) for rid in range(count)]
+
+
+def poisoned_ensemble(torch, rt, cfg, seed: int):
+    """``SERVE_N`` replicas of ``init_model(seed)`` on the card, jittered
+    at 1e-3 from a CPU generator, the last ``SERVE_F`` sign-flipped at
+    scale 10."""
+    params = rt["init_model"](seed, cfg, device="cuda")
+    honest = rt["replicate_params"](
+        params, SERVE_N, jitter=1e-3,
+        generator=torch.Generator().manual_seed(seed))
+    del params
+    stacked = rt["poison_replicas"](honest, SERVE_F, "signflip", scale=10.0)
+    del honest
+    torch.cuda.empty_cache()
+    return stacked
+
+
+class Probe:
+    """Wraps an engine's robust steps (``_ens_prefill``, ``_decode``,
+    ``_verify``): the launches of each call (counter differences, so a
+    run's totals stay readable around it), host ms per call ending in a
+    synchronize, and the poisoned replica's selection weight, which must
+    be 0 in every aggregation.  ``hook(args)`` runs before a decode call,
+    outside its launch window."""
+
+    def __init__(self, torch, rt, eng, hook=None):
+        self.torch, self.build = torch, rt["build"]
+        self.calls = {"admit": [], "decode": [], "verify": []}
+        self.hook = hook
+        for kind, attr in (("admit", "_ens_prefill"), ("decode", "_decode"),
+                           ("verify", "_verify")):
+            if hasattr(eng, attr):
+                setattr(eng, attr, self.wrap(getattr(eng, attr), kind))
+
+    def wrap(self, fn, kind):
+        torch, build = self.torch, self.build
+
+        def call(*args):
+            if kind == "decode" and self.hook is not None:
+                self.hook(args)
+            torch.cuda.synchronize()
+            before = dict(build.LAUNCHES)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            diff = {k: build.LAUNCHES[k] - before[k] for k in before}
+            sel = out[2].selected
+            byz = float(sel[..., SERVE_N - SERVE_F:].abs().sum())
+            self.calls[kind].append({"launches": diff, "ms": ms,
+                                     "byz": byz})
+            return out
+
+        return call
+
+    def check(self, per_call: dict, what: str, k: int = 1) -> None:
+        """Each admission and decode step launches ``per_call``, each
+        verify block ``k`` times that; no aggregation selects the
+        poisoned replica."""
+        for kind, calls in self.calls.items():
+            times = k if kind == "verify" else 1
+            want = per_step(per_call, times)
+            for i, c in enumerate(calls):
+                expect_launches(c["launches"], want, f"{what} {kind} {i}")
+                expect(c["byz"] == 0.0, f"{what} {kind} {i}: the poisoned "
+                       f"replica has selection weight {c['byz']}")
+
+
+def serve_run(torch, rt, cfg, params, reqs, spec, n_slots=SERVE_SLOTS,
+              cache_len=SERVE_CACHE, hook=None):
+    """One engine run: streams, the probe, wall seconds and the engine."""
+    eng = rt["ServingEngine"](params, cfg, n_slots=n_slots,
+                              cache_len=cache_len, ensemble=spec)
+    probe = Probe(torch, rt, eng, hook)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run([rt["Request"](rid, p, m) for rid, p, m in reqs],
+                  max_steps=400)
+    torch.cuda.synchronize()
+    return out, probe, time.perf_counter() - t0, eng
+
+
+def device_profile(torch, fn) -> dict:
+    """One call of ``fn`` under torch.profiler: wall ms, device busy ms,
+    K5's device ms (its three kernels) and the top device entries."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0 and "/" not in ev.key:
+            rows.append((us / 1e3, ev.key))
+    rows.sort(reverse=True)
+    k5 = sum(ms for ms, key in rows
+             if any(k in key for k in ("gram_kernel", "select_kernel",
+                                       "combine_bulyan_kernel")))
+    return {"wall": wall, "busy": sum(ms for ms, _ in rows), "k5": k5,
+            "top": rows[:8]}
+
+
+def serve_kernel_rows(torch, ops, timer, x) -> dict:
+    """K1, the selection, K4 and K5 on a decode step's (n, B V) logits
+    stack: each against its plain version (1e-4 of the largest entry;
+    selections exactly), its time, its plain version's, its bound and a
+    library call where one computes the same function."""
+    pg, fa = ops["pairwise_gram"], ops["fused_agg"]
+    n, d, f, mode = x.shape[0], x.shape[1], SERVE_F, SERVE_GAR
+    raw = pg.pairwise_gram_partial(x)
+    k1_err, k1_rel, _ = scaled_err(raw, pg.pairwise_gram_partial_plain(x))
+    w, sel, _ = fa.select_weights(raw, n, f, mode)
+    wp, selp, _ = fa.select_weights_plain(raw, n, f, mode)
+    expect(torch.equal(w, wp) and torch.equal(sel, selp),
+           "9a: the selection differs from its plain version")
+    k4_err, k4_rel, _ = scaled_err(fa.fused_coordinate(x, w, f, mode=mode),
+                                   fa.fused_coordinate_plain(x, wp, f,
+                                                             mode=mode))
+    got, want = fa.fused_aggregate(x, f, mode=mode), \
+        fa.fused_aggregate_plain(x, f, mode=mode)
+    k5_err, k5_rel, _ = scaled_err(got[0], want[0])
+    expect(torch.equal(got[1], want[1]), "9a: K5's selected differs")
+    for name, rel in (("K1", k1_rel), ("K4", k4_rel), ("K5", k5_rel)):
+        expect(rel <= FP32_TOL, f"9a {name} on the serve stack: {rel:.3e}")
+    table = {
+        "pairwise_gram_partial": (
+            lambda: pg.pairwise_gram_partial(x),
+            lambda: pg.pairwise_gram_partial_plain(x),
+            lambda: torch.mm(x, x.T), k1_err, k1_rel),
+        "select_weights": (
+            lambda: fa.select_weights(raw, n, f, mode),
+            lambda: fa.select_weights_plain(raw, n, f, mode), None, 0.0,
+            0.0),
+        "fused_coordinate": (
+            lambda: fa.fused_coordinate(x, w, f, mode=mode),
+            lambda: fa.fused_coordinate_plain(x, wp, f, mode=mode), None,
+            k4_err, k4_rel),
+        "fused_aggregate": (
+            lambda: fa.fused_aggregate(x, f, mode=mode),
+            lambda: fa.fused_aggregate_plain(x, f, mode=mode), None,
+            k5_err, k5_rel),
+    }
+    rows = {}
+    for name, (kern, plain, lib, err, rel) in table.items():
+        rows[name] = {"ms": timer.ms(kern, 20),
+                      "plain_ms": timer.ms(plain, 3, warmup=1),
+                      "library_ms": None if lib is None else timer.ms(lib,
+                                                                      20),
+                      "max_abs_err": err, **bound(n, d, f, name, 4)}
+        r = rows[name]
+        lib_s = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"  9a {name:22s} kernel {r['ms']:8.4f} ms  plain "
+              f"{r['plain_ms']:8.4f} ms  library {lib_s} ms  bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); max abs err "
+              f"{err:.3e} ({rel:.2e} of the largest entry)", flush=True)
+    return rows
+
+
+def phase_serve_full(torch, np, rt, ops, timer, smi):
+    """9a: gemma3-1b at full width (8a's cut and seed) served by an
+    ensemble of 7 (the last replica poisoned) through
+    ``ServingEngine(ensemble=bulyan-krum over fused)``: 6 requests on 4
+    slots, so slots are reused."""
+    import dataclasses
+    cfg = dataclasses.replace(rt["get_config"](LLM_ARCH),
+                              n_layers=LLM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = poisoned_ensemble(torch, rt, cfg, 0)
+    n_params = sum(p[0].numel() for p in rt["tree_leaves"](params))
+    expect(n_params == LLM_PARAMS, f"9a: {n_params:,} parameters")
+    print(f"  9a {cfg.name} x {LLM_LAYERS} layers: {n_params:,} parameters "
+          f"per replica, {SERVE_N} replicas (last poisoned) built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    reqs = serve_requests(np, cfg.vocab_size, 6, 9, (32, 256), (16, 32))
+    spec = serve_spec(rt)
+    n_tokens = sum(m for _, _, m in reqs)
+
+    # run A: the counted main path, counters from 0 just before, read
+    # just after
+    torch.cuda.synchronize()
+    rt["build"].reset_launches()
+    run_a, probe_a, secs_a, _ = serve_run(torch, rt, cfg, params, reqs, spec)
+    totals = dict(rt["build"].LAUNCHES)
+    probe_a.check(K5_CALL, "9a")
+    n_dec, n_adm = len(probe_a.calls["decode"]), len(probe_a.calls["admit"])
+    expect(n_adm == len(reqs), f"9a: {n_adm} admissions")
+    expect_launches(totals, per_step(K5_CALL, n_dec + n_adm), "9a run")
+    expect(all(len(run_a[r]) == m for r, _, m in reqs),
+           "9a: a stream has the wrong length")
+    print(f"  ok  9a {n_dec} decode steps and {n_adm} admissions: each "
+          f"exactly K1 1, select 1, K4 1 (K5 counter 3), K2 / K3 0; the "
+          f"poisoned replica never selected; totals {totals}", flush=True)
+
+    # run B: the repeat, with the first decode step's stack held to the
+    # xla backend and one later step profiled (outside run A)
+    seen = {"stack": None}
+
+    def first_step(args):
+        if seen["stack"] is not None:
+            return
+        p, c, tok, pos, _ = args
+        logits, _ = torch.func.vmap(lambda pp, cc: rt["decode_step"](
+            pp, cfg, cc, tok, pos))(p, c)
+        stack = logits[:, :, 0, :].to(torch.float32)
+        agg_f, res_f = rt["aggregate_logits"](stack, SERVE_F, SERVE_GAR,
+                                              distance_backend="fused")
+        agg_x, res_x = rt["aggregate_logits"](stack, SERVE_F, SERVE_GAR,
+                                              distance_backend="xla")
+        err, rel, scale = scaled_err(agg_f, agg_x)
+        expect(rel <= FP32_TOL, f"9a first step: fused vs xla {rel:.3e} "
+               f"of {scale:.4e}")
+        expect(torch.equal(res_f.selected, res_x.selected),
+               f"9a first step: selected {res_f.selected.tolist()} vs xla "
+               f"{res_x.selected.tolist()}")
+        n_diff = int((agg_f != agg_x).sum())
+        print(f"  ok  9a first decode step ({SERVE_N}, {stack[0].numel():,})"
+              f": fused == xla at {rel:.2e} of its largest entry "
+              f"({scale:.4f}; {n_diff} of {agg_f.numel():,} coordinates not "
+              f"bit-equal), selected equal {res_f.selected.tolist()}",
+              flush=True)
+        seen["stack"] = stack.reshape(SERVE_N, -1).contiguous()
+
+    run_b, _, secs_b, _ = serve_run(torch, rt, cfg, params, reqs, spec,
+                                    hook=first_step)
+    expect(run_b == run_a, "9a: a second run gave other streams")
+    print(f"  ok  9a a second run gives the same {len(reqs)} streams bit for "
+          f"bit", flush=True)
+
+    # one request alone, then telemetry on
+    solo, _, _, _ = serve_run(torch, rt, cfg, params, reqs[:1], spec)
+    expect(solo[0] == run_a[0], f"9a: request 0 alone {solo[0]} vs in the "
+           f"batch {run_a[0]}")
+    run_c, probe_c, _, eng_c = serve_run(
+        torch, rt, cfg, params, reqs, serve_spec(rt, telemetry=True))
+    expect(run_c == run_a, "9a: telemetry=True changed the streams")
+    pushed = eng_c.telemetry()["pushed"]
+    expect(pushed == len(probe_c.calls["decode"]),
+           f"9a: telemetry pushed {pushed} rows for "
+           f"{len(probe_c.calls['decode'])} aggregations")
+    probe_c.check(K5_CALL, "9a telemetry")
+    print(f"  ok  9a request 0 alone == in the batch; telemetry on == off "
+          f"bit for bit, {pushed} rows pushed == decode aggregations",
+          flush=True)
+
+    # readings: host ms per step, tokens/s, prefill ms, the profile
+    dec_ms = [c["ms"] for c in probe_a.calls["decode"]]
+    adm_ms = [c["ms"] for c in probe_a.calls["admit"]]
+    state = {}
+
+    def capture(args):
+        state["args"] = args
+
+    eng = rt["ServingEngine"](params, cfg, n_slots=SERVE_SLOTS,
+                              cache_len=SERVE_CACHE, ensemble=spec)
+    for rid, p, m in reqs[:SERVE_SLOTS]:
+        eng.submit(rt["Request"](rid, p, m))
+    eng.step()
+    eng.step()
+    step_fn = eng._decode
+    tokens = torch.as_tensor(eng.last_token, device="cuda")[:, None]
+    prof = device_profile(torch, lambda: step_fn(
+        eng.params, eng.cache, tokens, eng.positions.copy(), eng.agg_state))
+    del eng
+    avg, _, _, _ = serve_run(torch, rt, cfg, params, reqs[:SERVE_SLOTS],
+                             rt["AggSpec"](f=SERVE_F, gar="average"))
+    steered = any(avg[r] != run_a[r] for r, _, _ in reqs[:SERVE_SLOTS])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  9a ms per decode step: median {statistics.median(dec_ms):.2f} "
+          f"(min {min(dec_ms):.2f}, max {max(dec_ms):.2f}, {len(dec_ms)} "
+          f"steps); prefill ms per admission: median "
+          f"{statistics.median(adm_ms):.2f} (prompts "
+          f"{[len(p) for _, p, _ in reqs]}); {n_tokens} tokens in "
+          f"{secs_a:.2f} s = {n_tokens / secs_a:.1f} tokens/s (run A; run B "
+          f"{secs_b:.2f} s); peak memory {peak:.1f} GiB ({smi})", flush=True)
+    print(f"  9a profiled decode step: wall {prof['wall']:.2f} ms, device "
+          f"busy {prof['busy']:.3f} ms ({100 * prof['busy'] / prof['wall']:.1f}"
+          f"%), K5 (K1 + select + K4) {prof['k5']:.4f} ms; top device time:",
+          flush=True)
+    for ms, key in prof["top"]:
+        print(f"    {ms:9.4f} ms  {key[:100]}", flush=True)
+    print(f"  9a average on the poisoned ensemble steered: "
+          f"{'YES' if steered else 'NO'} (printed, not gated)", flush=True)
+    rows = serve_kernel_rows(torch, ops, timer, seen["stack"])
+    del params, seen
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": totals,
+            "step_ms": statistics.median(dec_ms)}
+
+
+def phase_serve_speculative(torch, np, rt, smi):
+    """9b: speculative verify at llama3.2-3b's published widths cut to 2
+    layers (gemma3-1b's swa slots fail ``verify_supported``): k = 1
+    against the per-token engine bit for bit, then k = 4 with the draft
+    on replica 0."""
+    import dataclasses
+    cfg = dataclasses.replace(rt["get_config"](SPEC_ARCH),
+                              n_layers=SPEC_LAYERS)
+    ok, why = rt["verify_supported"](cfg)
+    expect(ok, f"9b: {why}")
+    gemma = rt["verify_supported"](rt["get_config"](LLM_ARCH))
+    expect(not gemma[0], "9b: gemma3-1b passed verify_supported")
+    t0 = time.perf_counter()
+    params = poisoned_ensemble(torch, rt, cfg, 1)
+    n_params = sum(p[0].numel() for p in rt["tree_leaves"](params))
+    expect(n_params == SPEC_PARAMS, f"9b: {n_params:,} parameters")
+    print(f"  9b {cfg.name} x {SPEC_LAYERS} layers: {n_params:,} parameters "
+          f"per replica x {SERVE_N} built in {time.perf_counter() - t0:.1f} "
+          f"s; gemma3-1b refused: {gemma[1]}", flush=True)
+    reqs = serve_requests(np, cfg.vocab_size, 4, 11, (32, 64), (16, 24))
+    per_token, probe_p, secs_p, _ = serve_run(torch, rt, cfg, params, reqs,
+                                              serve_spec(rt), cache_len=512)
+    probe_p.check(K5_CALL, "9b per-token")
+    k1, probe_1, _, _ = serve_run(torch, rt, cfg, params, reqs,
+                                  serve_spec(rt, speculative_k=1),
+                                  cache_len=512)
+    expect(k1 == per_token, "9b: k = 1 differs from the per-token engine")
+    probe_1.check(K5_CALL, "9b k = 1", k=1)
+    print(f"  ok  9b k = 1 == the per-token engine bit for bit "
+          f"({sum(len(v) for v in k1.values())} tokens)", flush=True)
+
+    spec = serve_spec(rt, speculative_k=SPEC_K, draft_replica=0)
+    eng = rt["ServingEngine"](params, cfg, n_slots=SERVE_SLOTS,
+                              cache_len=512, ensemble=spec)
+    probe = Probe(torch, rt, eng)
+    accept = eng._accept
+    worst = {"gap": 0.0}
+
+    def checked_accept(block, agg_logits, **kw):
+        emitted, count, v = accept(block, agg_logits, **kw)
+        c = count.cpu()
+        expect(bool(((c >= 1) & (c <= SPEC_K)).all()),
+               f"9b: counts {c.tolist()} outside [1, {SPEC_K}]")
+        top = agg_logits.amax(dim=-1)
+        got = torch.gather(agg_logits, -1, emitted.long()[..., None])[..., 0]
+        valid = torch.arange(SPEC_K, device=c.device)[None, :] < c[:, None]
+        gap = float(((top - got).cpu() * valid).max())
+        worst["gap"] = max(worst["gap"], gap)
+        expect(gap <= 0.0, f"9b: an emitted token trails its position's "
+               f"aggregated maximum by {gap}")
+        return emitted, count, v
+
+    eng._accept = checked_accept
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec_out = eng.run([rt["Request"](rid, p, m) for rid, p, m in reqs],
+                       max_steps=400)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    probe.check(K5_CALL, f"9b k = {SPEC_K}", k=SPEC_K)
+    tel = eng.telemetry()
+    agree = []
+    for rid, _, m in reqs:
+        a, b = spec_out[rid], per_token[rid]
+        expect(len(a) == m, f"9b: request {rid} has {len(a)} tokens")
+        same = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                    len(a))
+        agree.append(same / m)
+    blocks = len(probe.calls["verify"])
+    print(f"  ok  9b k = {SPEC_K}: {blocks} verify blocks, each exactly "
+          f"K1 {SPEC_K}, select {SPEC_K}, K4 {SPEC_K} (K5 counter "
+          f"{3 * SPEC_K}); counts in [1, {SPEC_K}]; every emitted token at "
+          f"its position's aggregated maximum (worst gap {worst['gap']})",
+          flush=True)
+    vms = [c["ms"] for c in probe.calls["verify"]]
+    print(f"  9b accept mean {tel['accept_mean']:.3f} tokens per block; the "
+          f"k = {SPEC_K} stream agrees with the per-token stream up to "
+          f"{[round(a, 3) for a in agree]} of each request; ms per verify "
+          f"block median {statistics.median(vms):.2f}; {secs:.2f} s for the "
+          f"run vs {secs_p:.2f} s per-token ({smi})", flush=True)
+    del params, eng
+    torch.cuda.empty_cache()
+
+
+def phase_serve_reduced(torch, np, rt):
+    """9c: every family's ``reduced()`` config: the robust prefill step
+    and 4 robust decode steps on the card, with exact launches per call
+    and finite aggregates."""
+    spec = serve_spec(rt)
+    for arch in (LLM_ARCH,) + LLM_OTHERS:
+        cfg = rt["get_reduced"](arch)
+        params = rt["replicate_params"](
+            rt["init_model"](0, cfg, device="cuda"), SERVE_N, jitter=1e-3,
+            generator=torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 8)),
+                                 dtype=torch.int32, device="cuda")
+        extra = None
+        if cfg.arch_type in ("audio", "vlm"):
+            extra = torch.as_tensor(rng.standard_normal(
+                (2, cfg.encoder_seq or cfg.vision_seq, cfg.d_model)),
+                dtype=torch.float32, device="cuda")
+        prefill = rt["make_robust_prefill_step"](cfg, spec, cache_len=16)
+        step = rt["make_robust_serve_step"](cfg, spec)
+        (agg, cache, _), counts = counted(
+            torch, rt["build"], lambda: prefill(params, tokens, extra))
+        expect_launches(counts, per_step(K5_CALL), f"9c {arch} prefill")
+        token = torch.argmax(agg, dim=-1).to(torch.int32)[:, None]
+        for t in range(4):
+            pos = np.full((2,), 8 + t, np.int32)
+            (agg, cache, _, _), counts = counted(
+                torch, rt["build"], lambda: step(params, cache, token, pos))
+            expect_launches(counts, per_step(K5_CALL),
+                            f"9c {arch} decode {t}")
+            expect(bool(torch.isfinite(agg).all()),
+                   f"9c {arch}: a non-finite aggregate")
+            token = torch.argmax(agg, dim=-1).to(torch.int32)[:, None]
+        print(f"  ok  9c {cfg.name} ({cfg.arch_type}): prefill + 4 decode "
+              f"steps of the robust ensemble, K1 1 / select 1 / K4 1 per "
+              f"call, finite", flush=True)
+        del params, cache
+
+
+# ---------------------------------------------------------------------------
 
 def print_ptxas(log: pathlib.Path) -> None:
     """One line per kernel of an ``-Xptxas -v`` build log: its (mangled)
@@ -2162,7 +2640,9 @@ def main() -> int:
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.data.synthetic import lm_batches
     from repro_torch.dist import train as llm_train
-    from repro_torch.models import init_model
+    from repro_torch.dist import serve_robust
+    from repro_torch.models import decode_step, init_model, verify_supported
+    from repro_torch.serving import Request, ServingEngine
     rt = dict(simple=simple, trainer=trainer, fused_agg=fused_agg,
               build=_build, AggSpec=AggSpec, unflatten=unflatten,
               ByzantineBatcher=ByzantineBatcher, mnist_like=mnist_like,
@@ -2183,7 +2663,14 @@ def main() -> int:
               make_train_step=llm_train.make_train_step,
               make_loss_fn=llm_train.make_loss_fn,
               byzantine_grads=llm_train.byzantine_grads,
-              pairwise_gram_tree=pairwise_gram.pairwise_gram_tree)
+              pairwise_gram_tree=pairwise_gram.pairwise_gram_tree,
+              replicate_params=serve_robust.replicate_params,
+              poison_replicas=serve_robust.poison_replicas,
+              aggregate_logits=serve_robust.aggregate_logits,
+              make_robust_prefill_step=serve_robust.make_robust_prefill_step,
+              make_robust_serve_step=serve_robust.make_robust_serve_step,
+              ServingEngine=ServingEngine, Request=Request,
+              decode_step=decode_step, verify_supported=verify_supported)
     ops = {"fused_agg": fused_agg, "pairwise_gram": pairwise_gram,
            "bulyan_select": bulyan_select, "coord_stats": coord_stats}
 
@@ -2269,6 +2756,15 @@ def main() -> int:
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s ({smi})",
           flush=True)
 
+    print("== phase 9: serving (the decode path, the ensemble engine, "
+          "verify)", flush=True)
+    t9 = time.perf_counter()
+    serve = phase_serve_full(torch, np, rt, ops, timer, smi)
+    phase_serve_speculative(torch, np, rt, smi)
+    phase_serve_reduced(torch, np, rt)
+    print(f"  phase 9 took {time.perf_counter() - t9:.1f} s ({smi})",
+          flush=True)
+
     kernels = []
     for model, kind in (("mlp", "mnist"), ("cnn", "cifar")):
         for name, r in timings[model].items():
@@ -2292,6 +2788,16 @@ def main() -> int:
         expect(launches > 0, f"{name} was not launched on the LLM path")
         kernels.append({
             "name": f"{name}@{LLM_ARCH}", "route": "cuda",
+            "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    for name, r in serve["rows"].items():
+        launches = serve["launches"][name]
+        expect(launches > 0, f"{name} was not launched on the serving path")
+        kernels.append({
+            "name": f"{name}@serve", "route": "cuda",
             "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -45,7 +45,13 @@ class AggSpec:
         records per-worker diagnostics each step.  The data path is the
         same either way, bit for bit; attacks keep targeting the raw
         ``gar`` name.
-    The serving and sharded fields come with those paths.
+
+    The serving fields, as in the reference:
+      speculative_k: the serving engine's verify-block length (0: the
+        per-token path; 1: the speculative machinery with no draft,
+        the per-token stream bit for bit; ``k > 1``: a draft replica
+        proposes ``k - 1`` tokens per step).
+      draft_replica: the ensemble row whose parameters the draft reads.
     """
 
     f: int
@@ -60,6 +66,8 @@ class AggSpec:
     seed: int = 0
     async_tau: "int | tuple" = 0       # bounded staleness (scalar or per-worker)
     async_schedule: str = "fixed"      # fixed | random
+    speculative_k: int = 0             # verify-block length (0/1 = per-token)
+    draft_replica: int = 0             # ensemble row the draft model reads
     rep_lr: Optional[float] = None     # reputation-* EMA rate (None=default)
     rep_decay: Optional[float] = None  # reputation-* forgetting factor
     telemetry: bool = False            # aggregate through obs-<gar>

@@ -27,11 +27,11 @@ reference's sections and with its violation texts:
 * ``fp32`` — the kernels match their fp32 oracles on bf16 inputs
   (``repro_torch.kernels.probes``), and the tree engine's bf16 path
   under the ``auto`` and ``fused`` backends agrees with the fp32 flat
-  rule while keeping leaf dtypes.
-
-The reference's ``speculative`` section audits robust speculative
-serving, which is not ported yet (ROADMAP item 8): :func:`run_sweep`
-reports no such section and :func:`main` says so.
+  rule while keeping leaf dtypes;
+* ``speculative`` — robust speculative serving: per-position
+  aggregation of synthetic verifier-logit blocks keeps each rule's
+  invariants, and ``accept_block`` emits only tokens in the aggregate's
+  support, with counts in ``[1, k]``.
 
 Stacks are drawn on ``device`` from a ``torch.Generator`` per case,
 seeded with ``zlib.crc32`` of the case's parts, so the sweep is
@@ -501,8 +501,106 @@ def _fp32_section(cfg: SweepConfig, report: AuditReport,
             report.add("fp32", 1, violations)
 
 
-#: the sections, in the reference's order (its ``speculative`` section
-#: waits for ROADMAP item 8)
+def _speculative_section(cfg: SweepConfig, report: AuditReport,
+                         device: torch.device) -> None:
+    """Robust speculative serving: acceptance and aggregation contracts.
+
+    For every stateless roster rule with a tree path (serving aggregates
+    through ``aggregate_logits``) and every non-delay attack, a
+    synthetic ``(n, B, k, vocab)`` verifier-logit stack is aggregated
+    per position as ``make_robust_verify_step`` does, and two contracts
+    are checked: each position's aggregate keeps the rule's declared
+    invariants against the stack it consumed; and every token
+    ``accept_block`` emits carries an aggregated logit within ``1e-5``
+    of its position's maximum, counts lie in ``[1, k]``, a draft that
+    copies the aggregate's argmax is accepted in full, and a colluding
+    constant-token draft yields the aggregate's own argmax stream.
+    """
+    from repro_torch.dist.serve_robust import aggregate_logits
+    from repro_torch.serving.speculative import accept_block
+    batch, k_block, vocab = 2, 4, cfg.d
+    f = cfg.fs[0]
+    roster = [name for name in audit_roster()
+              if resolve_rule(name).tree_fn is not None
+              and not resolve_rule(name).stateful]
+    attacks = [a for a in cfg.attacks if a not in _DELAY_ATTACKS]
+    for name in roster:
+        rule = resolve_rule(name)
+        n = max(rule.min_n(f), f + 2) + cfg.extra_n[-1]
+        for attack in attacks:
+            violations: List[str] = []
+            gen = _case_generator(device, cfg.seed + 4, "speculative", name,
+                                  attack, n, f)
+            honest = torch.randn((n - f, batch, k_block, vocab),
+                                 generator=gen, device=device) * 0.5
+            if attack == "none" or f == 0:
+                byz = torch.randn((f, batch, k_block, vocab), generator=gen,
+                                  device=device) * 0.5
+            else:
+                flat = get_attack(attack)(honest.reshape(n - f, -1), f, gen,
+                                          **_ATTACK_KW.get(attack, {}))
+                byz = flat.reshape(f, batch, k_block, vocab)
+            stack = torch.cat([honest, byz])          # (n, B, k, V)
+            aggs = []
+            for j in range(k_block):
+                agg, diag = aggregate_logits(stack[:, :, j, :], f, name)
+                aggs.append(agg)
+                violations += check_rule_output(
+                    rule, agg.reshape(-1), diag.selected,
+                    stack[:, :, j, :].reshape(n, -1).cpu().numpy()
+                    .astype(np.float32), f,
+                    f"speculative/{name}/{attack}/pos{j}")
+            agg_logits = torch.stack(aggs, dim=1)      # (B, k, V)
+            v = torch.argmax(agg_logits, dim=-1).cpu().numpy()
+            t0 = torch.zeros((batch, 1), dtype=torch.int32, device=device)
+            # a draft copying the aggregate's argmax is accepted in full;
+            # a colluding constant-token draft yields the aggregate's own
+            # stream (collusion costs throughput, never correctness)
+            blocks = {
+                "clean": torch.cat([t0, torch.as_tensor(
+                    v[:, :k_block - 1], dtype=torch.int32, device=device)],
+                    dim=1),
+                "colluding": torch.cat([t0, torch.full(
+                    (batch, k_block - 1), 3, dtype=torch.int32,
+                    device=device)], dim=1),
+            }
+            anp = agg_logits.cpu().numpy().astype(np.float32)
+            for kind, block in blocks.items():
+                emitted, count, _ = accept_block(block, agg_logits)
+                emitted = emitted.cpu().numpy()
+                count = count.cpu().numpy()
+                label = f"speculative/{name}/{attack}/{kind}"
+                if ((count < 1) | (count > k_block)).any():
+                    violations.append(
+                        f"{label}: emission count {count.tolist()} "
+                        f"outside [1, {k_block}]")
+                for b in range(batch):
+                    for j in range(int(count[b])):
+                        gap = float(anp[b, j].max()
+                                    - anp[b, j, emitted[b, j]])
+                        if gap > 1e-5:
+                            violations.append(
+                                f"{label}: emitted token at slot {b} "
+                                f"pos {j} trails the aggregate max by "
+                                f"{gap:.3g} — not in the aggregate's "
+                                f"support")
+                if kind == "clean" and (count != k_block).any():
+                    violations.append(
+                        f"{label}: argmax-copying draft not fully "
+                        f"accepted (counts {count.tolist()})")
+                if kind == "colluding":
+                    for b in range(batch):
+                        got = emitted[b, :count[b]].tolist()
+                        want = v[b, :count[b]].tolist()
+                        if got != want:
+                            violations.append(
+                                f"{label}: colluding draft changed the "
+                                f"accepted stream {got} vs aggregate "
+                                f"argmax {want}")
+            report.add("speculative", k_block + 2, violations)
+
+
+#: the sections, in the reference's order
 SECTIONS: Tuple[Tuple[str, Callable], ...] = (
     ("quorum", _quorum_section),
     ("identity", _identity_section),
@@ -510,6 +608,7 @@ SECTIONS: Tuple[Tuple[str, Callable], ...] = (
     ("staleness", _staleness_section),
     ("fp32", _fp32_section),
     ("invariants", _invariant_section),
+    ("speculative", _speculative_section),
 )
 
 
@@ -528,7 +627,7 @@ def run_sweep(cfg: Optional[SweepConfig] = None, device="cuda", *,
 
     Returns:
       The populated :class:`AuditReport` (violations collected, never
-      raised).  It holds no ``speculative`` section.
+      raised).
     """
     cfg = cfg or SweepConfig()
     dev = resolve_device(device)
@@ -567,8 +666,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for section, (cases, bad) in sorted(report.sections.items()):
         print(f"audit/{section}: {cases} cases, {bad} violations",
               flush=True)
-    print("audit/speculative: not ported (robust speculative serving "
-          "waits for ROADMAP item 8)", flush=True)
     for v in report.violations:
         print(f"VIOLATION: {v}", flush=True)
     print(f"audit/total: {report.cases} cases, "

@@ -1,0 +1,423 @@
+"""Byzantine-resilient ensemble serving: robust aggregation at decode
+time (counterpart of ``repro/dist/serve_robust.py``).
+
+The paper's claim, that one Byzantine participant exploits the
+``Omega(sqrt(d))`` leeway of convergent aggregation rules, holds for an
+inference-time ensemble as it does for training: ``n`` replica
+parameter sets each produce per-token logits, and a master that
+averages them hands one poisoned replica every greedy decode.  This
+module is the serving side of ``repro_torch.dist.robust``:
+
+* replicas are a stacked parameter tree, every leaf with a leading
+  ``(n_replicas,)`` axis (:func:`stack_replicas` /
+  :func:`replicate_params`); the steps run the replicas through
+  ``torch.func.vmap`` over that axis;
+* poisoning reuses the training side's attacks:
+  :func:`poison_replicas` rewrites the last ``f`` replicas' parameters
+  through ``inject_byzantine``, and ``spec.attack`` poisons the stacked
+  logits at decode time;
+* aggregation is the registry applied to the ``(n, B, V)`` logits stack
+  of each decode step (:func:`aggregate_logits`, a one-leaf tree into
+  ``distributed_aggregate``), so under ``distance_backend="fused"`` every
+  step runs K5 (the selection kernel between K1 and K4) on ``(n, B V)``;
+  stateful rules carry an ``AggState`` across tokens.
+
+The continuous-batching engine is ``repro_torch.serving.engine``
+(``ServingEngine(..., ensemble=spec)``).  The sharded forms (``mesh=``)
+wait for the multi-rank runtime (ROADMAP item 6) and raise.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Optional, Sequence
+
+import torch
+
+from repro_torch.agg.specs import AggSpec
+from repro_torch.agg.state import AggState, init_state
+from repro_torch.core.pytree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.device import resolve_device
+from repro_torch.dist.robust import (distributed_aggregate, inject_byzantine,
+                                     resolve_distance_backend)
+from repro_torch.dist.train import _RANDOM_ATTACKS, _attack_generator
+from repro_torch.models import decode_step, prefill, verify_step
+from repro_torch.models.config import ModelConfig
+from repro_torch.obs.trace import named_span
+
+__all__ = ["aggregate_logits", "init_ensemble_state",
+           "make_robust_prefill_step", "make_robust_serve_step",
+           "make_robust_verify_step", "poison_replicas", "replicate_cache",
+           "replicate_params", "reset_slot_state", "stack_replicas"]
+
+
+# ---------------------------------------------------------------------------
+# replica parameter stacks
+# ---------------------------------------------------------------------------
+
+def stack_replicas(replicas: Sequence[Any]) -> Any:
+    """Stack per-replica parameter trees along a new leading axis.
+
+    Args:
+      replicas: structurally identical parameter trees, one per member.
+
+    Returns:
+      One tree whose every leaf is the ``(n_replicas, *dims)`` stack of
+      the replicas' leaves.
+    """
+    if not replicas:
+        raise ValueError("need at least one replica")
+    return tree_map(lambda *leaves: torch.stack(leaves), *replicas)
+
+
+def replicate_params(params: Any, n_replicas: int, *, jitter: float = 0.0,
+                     generator: Optional[torch.Generator] = None) -> Any:
+    """Broadcast one parameter set into an ``n_replicas``-stacked
+    ensemble.
+
+    Args:
+      params: one model's parameter tree.
+      n_replicas: ensemble size (the leading axis of every output leaf).
+      jitter: per-replica Gaussian perturbation, relative to each
+        stacked leaf's RMS value (``0.0``: exact copies); it models
+        independently fine-tuned replicas and gives distance-based rules
+        an honest cluster.
+      generator: the ``torch.Generator`` of the jitter, drawn on its own
+        device and moved to the parameters' (``None``: a CPU generator
+        seeded with 0, the reference's ``PRNGKey(0)``; its stream
+        differs from ``jax.random``'s).  Ignored when ``jitter == 0``.
+
+    Returns:
+      A tree of ``(n_replicas, *dims)`` leaves in the input dtypes.
+    """
+    if n_replicas < 1:
+        raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+    lead = (n_replicas,)
+    if jitter <= 0.0:
+        return tree_map(lambda p: p[None].expand(lead + tuple(p.shape))
+                        .clone(), params)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    out = []
+    for leaf in tree_leaves(params):
+        lf = leaf.to(torch.float32)
+        # the stacked leaf's RMS: it holds n copies of this one
+        rms = torch.sqrt(torch.mean(torch.square(lf)) + 1e-12)
+        noise = torch.randn(lead + tuple(leaf.shape), generator=generator,
+                            device=generator.device, dtype=torch.float32)
+        out.append((lf[None] + jitter * rms * noise.to(leaf.device))
+                   .to(leaf.dtype))
+        del lf, noise
+    return tree_unflatten(params, out)
+
+
+def replicate_cache(cache: Any, n_replicas: int) -> Any:
+    """Give a decode cache a leading replica axis (every replica starts
+    from the same empty cache, so a broadcast is exact).
+
+    Args:
+      cache: a cache tree from ``repro_torch.models.init_cache``.
+      n_replicas: ensemble size.
+
+    Returns:
+      The tree with every leaf copied to ``(n_replicas, *leaf.shape)``.
+    """
+    return tree_map(lambda x: x[None].expand(
+        (n_replicas,) + tuple(x.shape)).clone(), cache)
+
+
+def poison_replicas(stacked_params: Any, f: int, attack: str = "signflip",
+                    generator: Optional[torch.Generator] = None,
+                    **attack_kwargs) -> Any:
+    """Rewrite the last ``f`` replicas' parameters with a Byzantine
+    attack: ``inject_byzantine`` on parameters instead of gradients
+    (``"signflip"`` with a large scale makes a replica whose logits are
+    confidently wrong).
+
+    Args:
+      stacked_params: ``(n_replicas, *dims)``-stacked parameter tree.
+      f: replicas to poison, the trailing rows (``f <= 0``: a no-op).
+      attack: any attack ``inject_byzantine`` accepts.
+      generator: the ``torch.Generator`` of a random attack.
+      **attack_kwargs: per-attack parameters (``scale``, ``eps``, ...).
+
+    Returns:
+      The stacked tree with the last ``f`` replicas replaced; shapes and
+      dtypes kept.
+    """
+    return inject_byzantine(stacked_params, f, attack, generator,
+                            **attack_kwargs)
+
+
+# ---------------------------------------------------------------------------
+# logits aggregation (the one entry point every serving path shares)
+# ---------------------------------------------------------------------------
+
+def aggregate_logits(logits: torch.Tensor, f: int, gar: str, *,
+                     agg_dtype: str = "native",
+                     distance_backend: str = "auto", mesh=None,
+                     state: Optional[AggState] = None,
+                     history_window: Optional[int] = None,
+                     rep_lr: Optional[float] = None,
+                     rep_decay: Optional[float] = None):
+    """Aggregate a replica-stacked logits tensor through the registry.
+
+    The stack goes into ``distributed_aggregate`` as a one-leaf tree, so
+    the result is the flat rule on ``logits.reshape(n, -1)``: no rule is
+    forked for serving.  Under ``distance_backend="fused"`` the one leaf
+    runs through K5.
+
+    Args:
+      logits: ``(n_replicas, batch, vocab)`` (or ``(n_replicas, vocab)``)
+        logits of one decode position.
+      f: Byzantine bound (quorum-checked).
+      gar: any rule with a tree implementation.
+      agg_dtype: accumulation dtype (see ``repro_torch.dist.robust``).
+      distance_backend: ``"xla"`` | ``"pallas"`` | ``"fused"`` |
+        ``"auto"``.
+      mesh: must be ``None`` (ROADMAP item 6; ``distributed_aggregate``
+        raises).
+      state: carried ``AggState`` of a stateful rule (``None``: zeros).
+      history_window: ``buffered-*`` window (``None``: the default).
+      rep_lr: ``reputation-*`` EMA rate (``None``: the default).
+      rep_decay: ``reputation-*`` forgetting factor (``None``: the
+        default).
+
+    Returns:
+      ``(aggregate, DistAggResult)``, plus the new state for a stateful
+      rule; the aggregate drops the replica axis and keeps the dtype.
+    """
+    out = distributed_aggregate(
+        {"logits": logits}, f, gar, agg_dtype=agg_dtype,
+        distance_backend=distance_backend, mesh=mesh, state=state,
+        history_window=history_window, rep_lr=rep_lr, rep_decay=rep_decay)
+    agg = out[0]["logits"]
+    if len(out) == 3:
+        return agg, out[1], out[2]
+    return agg, out[1]
+
+
+def init_ensemble_state(spec: AggSpec, n_replicas: int, batch: int,
+                        vocab: int, device="cuda") -> Optional[AggState]:
+    """Zeroed ``AggState`` of a stateful serving aggregator.
+
+    The template is the ``(n_replicas, batch, vocab)`` logits stack of a
+    decode step, so window buffers are ``(W, n_replicas, batch, vocab)``;
+    ``reputation-*`` rules get one trust column per slot, ``(n_replicas,
+    batch)``, which :func:`reset_slot_state` can reset alone.
+
+    Args:
+      spec: the serving ``AggSpec``.
+      n_replicas: ensemble size.
+      batch: decode batch (the engine's slots).
+      vocab: vocabulary size.
+      device: where the buffers live (``"cuda"`` raises without a card).
+
+    Returns:
+      The state, or ``None`` for a stateless rule.
+    """
+    rule = spec.rule()
+    if not rule.stateful:
+        return None
+    template = {"logits": torch.empty((n_replicas, batch, vocab),
+                                      dtype=torch.float32, device="meta")}
+    return init_state(rule, template, flat=False, rep_dims=(batch,),
+                      device=resolve_device(device))
+
+
+def reset_slot_state(state: Optional[AggState],
+                     slot: int) -> Optional[AggState]:
+    """Clear one batch slot's column of a serving ``AggState``.
+
+    A request admitted into a reused slot must not inherit the previous
+    occupant's window / momentum history or replica trust; the engine
+    calls this at admission.  Other slots and the global ``step`` are
+    untouched.
+
+    Args:
+      state: the engine's carried state (``None`` for stateless rules).
+      slot: the batch slot being (re)admitted.
+
+    Returns:
+      A new state with ``history[:, :, slot]`` and ``center[slot]``
+      zeroed and ``reputation[:, slot]`` back to ones, or ``None``.
+    """
+    if state is None:
+        return None
+
+    def cleared(t: torch.Tensor, index, value: float) -> torch.Tensor:
+        t = t.clone()
+        t[index] = value
+        return t
+
+    history = tuple(cleared(h, (slice(None), slice(None), slot), 0.0)
+                    for h in state.history) if state.history != () else ()
+    center = tuple(cleared(c, slot, 0.0)
+                   for c in state.center) if state.center != () else ()
+    reputation = state.reputation
+    if isinstance(reputation, torch.Tensor) and reputation.ndim == 2:
+        reputation = cleared(reputation, (slice(None), slot), 1.0)
+    return state._replace(history=history, center=center,
+                          reputation=reputation)
+
+
+# ---------------------------------------------------------------------------
+# the ensemble steps
+# ---------------------------------------------------------------------------
+
+def _maybe_attack_logits(stack: torch.Tensor, spec: AggSpec,
+                         pos) -> torch.Tensor:
+    """The decode-time omniscient adversary on the stacked logits.  A
+    random attack draws from a generator seeded from ``(spec.seed,
+    sum(pos))``: any active slot advancing gives fresh noise."""
+    if spec.attack == "none" or spec.f <= 0:
+        return stack
+    akw = dict(spec.attack_kwargs)
+    akw.setdefault("gar_name", spec.gar)
+    gen = None
+    if spec.attack in _RANDOM_ATTACKS:
+        pos_sum = int(torch.as_tensor(pos, dtype=torch.int64).sum())
+        gen = _attack_generator(spec.seed, pos_sum, stack.device)
+    return inject_byzantine({"logits": stack}, spec.f, spec.attack, gen,
+                            **akw)["logits"]
+
+
+def _aggregate(spec: AggSpec, stack: torch.Tensor, state, stateful: bool):
+    """One ``aggregate_logits`` under ``spec``: ``(agg, diag, state)``
+    (the state passes through for a stateless rule)."""
+    out = aggregate_logits(
+        stack, spec.f_declared, spec.effective_gar,
+        agg_dtype=spec.agg_dtype, distance_backend=spec.distance_backend,
+        state=state if stateful else None,
+        history_window=spec.history_window, rep_lr=spec.rep_lr,
+        rep_decay=spec.rep_decay)
+    return out[0], out[1], (out[2] if stateful else state)
+
+
+def make_robust_prefill_step(cfg: ModelConfig, spec: AggSpec,
+                             cache_len: int = 0, impl: str = "auto",
+                             mesh=None) -> Callable:
+    """Build the ensemble prefill: every replica's forward, then a
+    robust first token.
+
+    Args:
+      cfg: every replica's model configuration.
+      spec: the serving ``AggSpec``.
+      cache_len: decode-cache positions (``0``: the prompt's length).
+      impl: attention path of the prefill.
+      mesh: must be ``None`` (ROADMAP item 6; checked with the spec's
+        backend when the step is built).
+
+    Returns:
+      ``prefill_step(stacked_params, tokens[, extra]) -> (agg_logits,
+      stacked_cache, diag)``: the prefill under ``vmap`` over the
+      replica axis (every replica sees the same prompt), the
+      last-position ``(n, B, V)`` logits aggregated through
+      ``spec.gar`` (stateful rules from a zero state: the carried state
+      starts on the decode stream), the caches replica-stacked.
+    """
+    resolve_distance_backend(spec.distance_backend, mesh)
+
+    def prefill_step(stacked_params, tokens: torch.Tensor,
+                     extra: Optional[torch.Tensor] = None):
+        logits, caches = torch.func.vmap(
+            lambda p: prefill(p, cfg, tokens, extra, cache_len=cache_len,
+                              impl=impl))(stacked_params)
+        stack = logits[:, :, -1, :].to(torch.float32)
+        out = aggregate_logits(
+            stack, spec.f_declared, spec.effective_gar,
+            agg_dtype=spec.agg_dtype,
+            distance_backend=spec.distance_backend,
+            history_window=spec.history_window,
+            rep_lr=spec.rep_lr, rep_decay=spec.rep_decay)
+        return out[0], caches, out[1]
+
+    return prefill_step
+
+
+def make_robust_serve_step(cfg: ModelConfig, spec: AggSpec,
+                           mesh=None) -> Callable:
+    """Build the robust ensemble decode step.
+
+    Args:
+      cfg: every replica's model configuration.
+      spec: the serving ``AggSpec``; ``spec.attack`` (``"none"`` to
+        disable) poisons the last ``spec.f`` replicas' logits.
+      mesh: must be ``None`` (ROADMAP item 6).
+
+    Returns:
+      ``serve_step(stacked_params, stacked_cache, token, pos,
+      agg_state=None) -> (agg_logits (B, V), new_cache, diag,
+      new_agg_state)``: one token on every replica (``vmap`` over the
+      replica axis of parameters and caches; the same ``token`` and
+      ``pos`` feed every replica), the attack, then the ``(n, B, V)``
+      stack through ``spec.gar``.  ``pos`` is a scalar or ``(B,)``
+      int32; thread the returned state into the next call (``None`` for
+      a stateless rule).
+    """
+    resolve_distance_backend(spec.distance_backend, mesh)
+    stateful = spec.rule().stateful
+
+    def serve_step(stacked_params, stacked_cache, token: torch.Tensor, pos,
+                   agg_state: Optional[AggState] = None):
+        logits, new_cache = torch.func.vmap(
+            lambda p, c: decode_step(p, cfg, c, token, pos)
+        )(stacked_params, stacked_cache)
+        stack = logits[:, :, 0, :].to(torch.float32)
+        stack = _maybe_attack_logits(stack, spec, pos)
+        agg, diag, new_state = _aggregate(spec, stack, agg_state, stateful)
+        return agg, new_cache, diag, (new_state if stateful else None)
+
+    return serve_step
+
+
+def make_robust_verify_step(cfg: ModelConfig, spec: AggSpec,
+                            mesh=None) -> Callable:
+    """Build the batched speculative-verify step.
+
+    Aggregation runs per position in stream order: a loop over the
+    block's ``k`` positions applies :func:`aggregate_logits` to each
+    ``(n, B, V)`` slice and threads the carried ``AggState`` from
+    position to position, so every rule keeps the per-token path's
+    semantics and state evolution, and a ``k = 1`` block is that path.
+
+    Args:
+      cfg: every replica's model configuration (``verify_supported``
+        must hold).
+      spec: the serving ``AggSpec`` (``spec.attack`` poisons every block
+        position).
+      mesh: must be ``None`` (ROADMAP item 6).
+
+    Returns:
+      ``verify(stacked_params, stacked_cache, tokens, pos,
+      agg_state=None) -> (agg_logits (B, k, V), new_cache, diag,
+      new_agg_state)``: one ``verify_step`` pass per replica over the
+      ``(B, k)`` block; ``diag`` is a ``DistAggResult`` whose fields
+      lead with a ``(k,)`` axis.
+    """
+    from repro_torch.dist.robust import DistAggResult
+    from repro_torch.models import verify_supported
+    resolve_distance_backend(spec.distance_backend, mesh)
+    ok, reason = verify_supported(cfg)
+    if not ok:
+        raise ValueError(
+            f"speculative verify unsupported for {cfg.name!r} — {reason}")
+    stateful = spec.rule().stateful
+
+    def verify(stacked_params, stacked_cache, tokens: torch.Tensor, pos,
+               agg_state: Optional[AggState] = None):
+        logits, new_cache = torch.func.vmap(
+            lambda p, c: verify_step(p, cfg, c, tokens, pos)
+        )(stacked_params, stacked_cache)
+        stack = logits.to(torch.float32)            # (n, B, k, V)
+        stack = _maybe_attack_logits(stack, spec, pos)
+        aggs, diags = [], []
+        for j in range(stack.shape[2]):             # stream order
+            with named_span("serve/verify"):
+                agg, diag, agg_state = _aggregate(spec, stack[:, :, j],
+                                                  agg_state, stateful)
+            aggs.append(agg)
+            diags.append(diag)
+        diag = DistAggResult(*(torch.stack(fs) for fs in zip(*diags)))
+        return (torch.stack(aggs, dim=1), new_cache, diag,
+                agg_state if stateful else None)
+
+    return verify

@@ -1,21 +1,26 @@
-"""Attention, the full-sequence half (counterpart of
-``repro/models/attention.py``): GQA / MQA with RoPE, full /
+"""Attention (counterpart of ``repro/models/attention.py``): GQA / MQA
+with RoPE, full /
 sliding-window / chunked-local / bidirectional / cross variants, a naive
 einsum path and a blockwise (flash-style, online-softmax) path.
 
 Shapes: q ``(B, Sq, Hq, D)``; k, v ``(B, Sk, Hkv, D)`` with
 ``Hq = G * Hkv``.  Softmax statistics are fp32 whatever the input dtype;
 scores of bf16 inputs are products taken in fp32, as the reference's
-``preferred_element_type=float32``.  The single-token decode and
-speculative-verify functions come with serving (ROADMAP item 8).
+``preferred_element_type=float32``.  The serving half,
+:func:`decode_attention` (one new token against a KV cache) and
+:func:`verify_attention` (a causal block of new tokens, the
+speculative-verify path), are plain products too.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["NEG_INF", "attention", "attention_blockwise",
-           "attention_naive", "rope"]
+           "attention_naive", "decode_attention", "rope",
+           "verify_attention"]
 
 NEG_INF = -1e30
 
@@ -211,3 +216,76 @@ def attention(q, k, v, *, kind: str = "attn", window: int = 0,
     fn = attention_blockwise if impl == "blockwise" else attention_naive
     return fn(q, k, v, kind=kind, window=window, chunk=chunk,
               q_offset=q_offset)
+
+
+# -- decode (single new token against a cache) --------------------------------
+
+def _cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor,
+                      mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Queries ``(B, Sq, Hq, D)`` against ``(B, L, Hkv, D)`` caches;
+    ``mask`` is ``(B, Sq, L)`` (True = attendable) or ``None``."""
+    b, sq, hq, d = q.shape
+    scores = _gqa_scores(q, k_cache) / _sqrt_d(d, q.device)
+    if mask is not None:
+        neg = torch.full((), NEG_INF, dtype=torch.float32, device=q.device)
+        scores = torch.where(mask[:, None, None, :, :], scores, neg)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v_cache.dtype), v_cache)
+    return out.reshape(b, sq, hq, d)
+
+
+def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     valid_len: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """One new token's queries against a KV cache.
+
+    Args:
+      q1: ``(B, 1, Hq, D)`` queries.
+      k_cache: ``(B, S, Hkv, D)`` keys.
+      v_cache: ``(B, S, Hkv, D)`` values.
+      valid_len: ``(B,)`` count of leading cache entries each sequence
+        attends to (``None``: the whole cache).
+
+    Returns:
+      ``(B, 1, Hq, D)`` in ``v_cache``'s dtype; scores in fp32, scaled by
+      ``sqrt(D)`` rounded to fp32, masked entries at ``NEG_INF``.
+    """
+    mask = None
+    if valid_len is not None:
+        s = k_cache.shape[1]
+        mask = (torch.arange(s, device=q1.device)[None, :]
+                < valid_len[:, None])[:, None, :]              # (B, 1, S)
+    return _cached_attention(q1, k_cache, v_cache, mask)
+
+
+# -- verify (a block of new tokens against a cache, causal) --------------------
+
+def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     q_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-query decode attention for speculative verify blocks.
+
+    Each query ``j`` attends to the first ``q_valid[:, j]`` cache
+    entries (the block's own keys must already be in the cache).  At
+    ``Sq = 1`` with ``q_valid = valid_len[:, None]`` this is
+    :func:`decode_attention` bit for bit: both run the same products on
+    the same mask.
+
+    Args:
+      q: ``(B, Sq, Hq, D)`` queries of a block of ``Sq`` new tokens.
+      k_cache: ``(B, L, Hkv, D)`` keys.
+      v_cache: ``(B, L, Hkv, D)`` values.
+      q_valid: ``(B, Sq)`` per-query causal prefix lengths (``None``:
+        the whole cache, the cross-attention case).
+
+    Returns:
+      ``(B, Sq, Hq, D)`` in ``v_cache``'s dtype.
+    """
+    mask = None
+    if q_valid is not None:
+        s = k_cache.shape[1]
+        mask = (torch.arange(s, device=q.device)[None, None, :]
+                < q_valid[:, :, None])                         # (B, Sq, S)
+    return _cached_attention(q, k_cache, v_cache, mask)

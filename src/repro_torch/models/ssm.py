@@ -1,12 +1,13 @@
-"""Mamba-2 (SSD, state-space duality) mixer, the full-sequence half
-(counterpart of ``repro/models/ssm.py``).
+"""Mamba-2 (SSD, state-space duality) mixer (counterpart of
+``repro/models/ssm.py``).
 
 The chunked SSD algorithm of the Mamba-2 paper (arXiv:2405.21060,
 Listing 1): inside a chunk the recurrence runs in its "attention dual"
 form (a causally masked ``(Q, Q)`` score matmul); across chunks a short
-loop carries the ``(H, N, P)`` state.  Prefill and single-token decode
-(``mamba_prefill``, ``init_mamba_cache``, ``mamba_decode_step``,
-``ssd_recurrent_step``) come with serving (ROADMAP item 8).
+loop carries the ``(H, N, P)`` state.  Serving prefills with the same
+chunked form (:func:`mamba_prefill` keeps the final state and the conv
+history) and decodes one token at a time with the exact recurrent form
+(:func:`mamba_decode_step`), whose state has a constant size.
 """
 from __future__ import annotations
 
@@ -15,7 +16,9 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 
-__all__ = ["init_mamba", "mamba_forward", "ssd_chunked"]
+__all__ = ["init_mamba", "init_mamba_cache", "mamba_decode_step",
+           "mamba_forward", "mamba_prefill", "ssd_chunked",
+           "ssd_recurrent_step"]
 
 
 def _prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -33,7 +36,7 @@ def _prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 B: torch.Tensor, C: torch.Tensor,
-                chunk: int = 128) -> torch.Tensor:
+                chunk: int = 128, return_final_state: bool = False):
     """The SSM ``h' = exp(dt A) h + dt B x``, ``y = C h`` by chunks.
 
     Args:
@@ -43,10 +46,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
       B: ``(b, s, n)`` input projections.
       C: ``(b, s, n)`` output projections.
       chunk: chunk length; ``s`` is padded up to a multiple (a padded
-        step has dt = 0: decay 1, increment 0).
+        step has dt = 0: decay 1, increment 0, so the final state is
+        unchanged by the padding).
+      return_final_state: also return the state after the last step.
 
     Returns:
-      ``y``: ``(b, s, h, p)``.
+      ``y``: ``(b, s, h, p)``, and the final ``(b, h, n, p)`` state
+      when ``return_final_state``.
     """
     b, s, h, p = x.shape
     n = B.shape[-1]
@@ -98,7 +104,33 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     y_inter = torch.einsum("bclh,bcln,bchnp->bclhp", torch.exp(seg), Cc,
                            hstack)
-    return (y_intra + y_inter).reshape(b, sp, h, p)[:, :s]
+    y = (y_intra + y_inter).reshape(b, sp, h, p)[:, :s]
+    if return_final_state:
+        return y, hprev
+    return y
+
+
+def ssd_recurrent_step(state: torch.Tensor, x1: torch.Tensor,
+                       dt1: torch.Tensor, A: torch.Tensor, B1: torch.Tensor,
+                       C1: torch.Tensor):
+    """One decode step of the SSM in its recurrent form.
+
+    Args:
+      state: ``(b, h, n, p)`` carried state.
+      x1: ``(b, h, p)`` input.
+      dt1: ``(b, h)`` step sizes.
+      A: ``(h,)`` decay rates.
+      B1: ``(b, n)`` input projection.
+      C1: ``(b, n)`` output projection.
+
+    Returns:
+      ``(new_state (b, h, n, p), y (b, h, p))``.
+    """
+    decay = torch.exp(dt1 * A[None, :])                # (b,h)
+    inc = torch.einsum("bn,bhp->bhnp", B1, x1 * dt1[..., None])
+    new_state = state * decay[:, :, None, None] + inc
+    y = torch.einsum("bn,bhnp->bhp", C1, new_state)
+    return new_state, y
 
 
 # ---------------------------------------------------------------------------
@@ -139,9 +171,9 @@ def _split_proj(proj: torch.Tensor, d_in: int, n: int, h: int):
     return z, xbc, dt
 
 
-def mamba_forward(p: dict, x: torch.Tensor, cfg,
-                  chunk: int = 128) -> torch.Tensor:
-    """Full-sequence Mamba-2 block: ``(B, S, D) -> (B, S, D)``."""
+def _mamba_sequence(p: dict, x: torch.Tensor, cfg, chunk: int):
+    """The block over a whole sequence: ``(out (B, S, D), xBC (B, S,
+    C), final SSM state)``."""
     b, s, d = x.shape
     d_in = cfg.ssm_expand * d
     n, h, hd = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
@@ -164,10 +196,94 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg,
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
-    y = ssd_chunked(xs.to(torch.float32), dt, A, B_.to(torch.float32),
-                    C_.to(torch.float32), chunk=chunk)
+    y, h_final = ssd_chunked(xs.to(torch.float32), dt, A,
+                             B_.to(torch.float32), C_.to(torch.float32),
+                             chunk=chunk, return_final_state=True)
     y = y + xs.to(torch.float32) * p["D"][None, None, :, None]
     y = y.reshape(b, s, d_in).to(x.dtype)
 
     y = layers.rmsnorm(p["norm"], y * F.silu(z))
-    return y @ p["out_proj"]
+    return y @ p["out_proj"], xbc, h_final
+
+
+def mamba_forward(p: dict, x: torch.Tensor, cfg,
+                  chunk: int = 128) -> torch.Tensor:
+    """Full-sequence Mamba-2 block: ``(B, S, D) -> (B, S, D)``."""
+    return _mamba_sequence(p, x, cfg, chunk)[0]
+
+
+def mamba_prefill(p: dict, x: torch.Tensor, cfg, chunk: int = 128):
+    """:func:`mamba_forward` that also returns the decode cache.
+
+    Args:
+      p: the block's parameters.
+      x: ``(B, S, D)`` normalized inputs.
+      cfg: the model configuration.
+      chunk: the SSD chunk length.
+
+    Returns:
+      ``(y (B, S, D), cache)``: ``cache["state"]`` is the final fp32 SSM
+      state and ``cache["conv"]`` the last ``ssm_conv - 1`` raw conv
+      inputs, zero-padded in front when ``S < ssm_conv - 1``.
+    """
+    s = x.shape[1]
+    out, xbc, h_final = _mamba_sequence(p, x, cfg, chunk)
+    k = p["conv_w"].shape[0]
+    hist = F.pad(xbc, (0, 0, k - 1, 0))[:, s:s + k - 1]
+    return out, {"conv": hist, "state": h_final}
+
+
+def init_mamba_cache(cfg, batch: int, dtype, device="cuda") -> dict:
+    """Zeroed decode cache of one Mamba block: ``conv`` ``(batch,
+    ssm_conv - 1, d_in + 2 n)`` in ``dtype`` and ``state`` ``(batch, h,
+    n, head_dim)`` in fp32, on ``device``."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    n, h, hd = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    conv_ch = d_in + 2 * n
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype,
+                            device=device),
+        "state": torch.zeros((batch, h, n, hd), dtype=torch.float32,
+                             device=device),
+    }
+
+
+def mamba_decode_step(p: dict, cache: dict, x1: torch.Tensor, cfg):
+    """One token through the block in its recurrent form.
+
+    Args:
+      p: the block's parameters.
+      cache: ``{"conv", "state"}`` (:func:`init_mamba_cache`).
+      x1: ``(B, 1, D)`` normalized input.
+      cfg: the model configuration.
+
+    Returns:
+      ``(new_cache, y (B, 1, D))``; the cache is new, never written in
+      place.
+    """
+    b, _, d = x1.shape
+    d_in = cfg.ssm_expand * d
+    n, h, hd = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+
+    proj = x1[:, 0] @ p["in_proj"]                     # (B, ...)
+    z, xbc, dt = _split_proj(proj, d_in, n, h)
+
+    hist = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)
+    conv = torch.einsum("bkc,kc->bc", hist, p["conv_w"]) + p["conv_b"]
+    conv = F.silu(conv)
+    new_conv = hist[:, 1:]
+
+    xs = conv[..., :d_in].reshape(b, h, hd)
+    B_ = conv[..., d_in:d_in + n]
+    C_ = conv[..., d_in + n:]
+    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+
+    new_state, y = ssd_recurrent_step(
+        cache["state"], xs.to(torch.float32), dt, A, B_.to(torch.float32),
+        C_.to(torch.float32))
+    y = y + xs.to(torch.float32) * p["D"][None, :, None]
+    y = y.reshape(b, d_in).to(x1.dtype)
+    y = layers.rmsnorm(p["norm"], y * F.silu(z))
+    out = (y @ p["out_proj"])[:, None, :]
+    return {"conv": new_conv, "state": new_state}, out

@@ -9,7 +9,7 @@ axis, as the reference scans it; remainder layers (``tail/t{t}``, when
 wraps each period in ``jax.checkpoint``, a memory choice with no effect
 on values; the port keeps every activation instead
 (``torch.utils.checkpoint`` does not compose with ``torch.func.vmap``).
-``prefill`` and ``decode_step`` come with serving (ROADMAP item 8).
+The serving path (``prefill``, ``decode_step``) is ``models/decode.py``.
 """
 from __future__ import annotations
 

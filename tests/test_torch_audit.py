@@ -9,8 +9,9 @@ against the JAX reference (``repro.audit``).
   1e-3 (see :meth:`TestLeeway.test_gamma_per_d`); ``certify`` and
   ``slope`` give the reference's results on one report;
 * the port's tiny sweep (the reference's ``tests/test_audit.py`` grid)
-  has no violation and the reference's case count per section, with the
-  reference's ``speculative`` section absent and named in the CLI;
+  has no violation and the reference's case count per section, its
+  ``speculative`` section included, and the CLI's quick sweep reports
+  the reference's ``speculative`` count;
 * the reference's injected-bug cases are caught;
 * the CLIs and scripts run on the CPU and import no JAX.
 """
@@ -53,12 +54,22 @@ TINY = dict(d=8, fs=(1,), extra_n=(0,),
             steps=2, taus=(0, 2), quorum_fs=(1, 2))
 #: case counts per section of the reference's ``run_sweep`` on ``TINY``,
 #: read off one run of ``repro.audit.sweep.run_sweep`` with JAX on the
-#: CPU (1130 cases, no violation; its ``speculative`` section held the
-#: other 306).  Pinned here so these tests do not rerun the reference's
-#: sweep (~2 min, mostly compiling).
+#: CPU (1130 cases, no violation).  Pinned here so these tests do not
+#: rerun the reference's sweep (~2 min, mostly compiling).
 REFERENCE_TINY_SECTIONS = {"invariants": 372, "quorum": 220,
                            "arbitrary-f": 110, "identity": 60,
-                           "staleness": 48, "fp32": 14}
+                           "staleness": 48, "fp32": 14, "speculative": 306}
+#: the reference's ``speculative`` section on the quick grid (``QUICK``):
+#: 408 cases, no violation, read off ``repro.audit.sweep.
+#: _speculative_section(QUICK, ...)`` with JAX on the CPU
+REFERENCE_QUICK_SPECULATIVE = (408, 0)
+#: the reference's ``speculative`` violations on ``TINY`` with the
+#: attacks ``("none", "zero")``, read off the same kind of run
+REFERENCE_ZERO_SPECULATIVE = [
+    f"speculative/{rule}/zero/colluding: colluding draft changed the "
+    f"accepted stream [3, 3, 3, 0] vs aggregate argmax [0, 0, 0, 0]"
+    for rule in ("fused-geomed", "fused-krum", "geomed", "krum")
+    for _ in range(2)]
 #: the leeway rules of these tests: the reference's defaults, their
 #: fused forms and the weakened rule
 LEEWAY_RULES = tuple(jlee.DEFAULT_RULES) + (("bulyan-weak", "bulyan-krum",
@@ -332,9 +343,7 @@ class TestSweep:
         assert report.ok(), report.violations[:5]
         assert {k: v[0] for k, v in report.sections.items()} == \
             REFERENCE_TINY_SECTIONS
-        assert report.cases == sum(REFERENCE_TINY_SECTIONS.values()) == 824
-        # the reference's serving section waits for ROADMAP item 8
-        assert "speculative" not in report.sections
+        assert report.cases == sum(REFERENCE_TINY_SECTIONS.values()) == 1130
 
     def test_configs_match_reference(self):
         assert dataclasses.asdict(tsweep.SweepConfig()) == \
@@ -359,15 +368,28 @@ class TestSweep:
 
         a = tsweep.run_sweep(cfg, device="cpu", section_hook=Hook)
         b = tsweep.run_sweep(cfg, device="cpu")
-        assert a == b and a.ok()
+        assert a == b
+        # on this grid the speculative section reports the reference's
+        # own 8 violations (the same strings, read off its run): under
+        # the zero attack Krum and GeoMed pick the all-zero row, every
+        # token of the aggregate ties, and the colluding draft's token
+        # is accepted as an argmax; every other section is clean
+        assert a.violations == REFERENCE_ZERO_SPECULATIVE
+        assert {k: v[1] for k, v in a.sections.items()} == {
+            name: 8 if name == "speculative" else 0
+            for name, _ in tsweep.SECTIONS}
         assert seen == [name for name, _ in tsweep.SECTIONS]
 
     def test_cli_names_the_missing_section(self, capsys):
+        """The section this test once found named as missing is now
+        reported, with the reference's case and violation counts on the
+        quick grid."""
         assert tsweep.main(["--quick", "--device", "cpu"]) == 0
         out = capsys.readouterr().out
-        assert "audit/speculative: not ported" in out
-        assert "ROADMAP item 8" in out
-        assert "audit/total: 917 cases, 0 violations" in out
+        cases, bad = REFERENCE_QUICK_SPECULATIVE
+        assert f"audit/speculative: {cases} cases, {bad} violations" in out
+        assert "not ported" not in out
+        assert "audit/total: 1325 cases, 0 violations" in out
 
 
 class TestSweepCatchesInjectedBugs:

@@ -671,3 +671,69 @@ def test_llm_step_on_the_card_matches_the_cpu(card):
                                            tree_leaves(params[card]),
                                            tree_leaves(init))):
             close_change(b, a, p0, t + 1, ties[i], what=(t, i))
+
+
+def test_robust_serve_step_on_the_card_matches_the_cpu(card):
+    """The ensemble's prefill and three decode steps (reduced
+    llama3.2-3b, 7 replicas jittered from a CPU generator, the last one
+    poisoned, ``bulyan-krum`` over ``fused``) on the card against the
+    same steps on the CPU (the kernels' plain versions there): each
+    call launches exactly K1, the selection and K4 once (K5's counter
+    reads its 3 parts), never selects the poisoned replica, and gives
+    the CPU's aggregate at 1e-4 of its largest entry off Bulyan's window
+    ties (tied or windowed differently on the two devices' logits
+    stacks, fewer than 1 in 1,000 coordinates)."""
+    import numpy as np
+    from torch_llm_compare import window_ties
+    from repro_torch.agg import AggSpec
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.dist.serve_robust import (make_robust_prefill_step,
+                                               make_robust_serve_step,
+                                               poison_replicas,
+                                               replicate_params)
+    from repro_torch.models import decode_step, init_model
+    cfg = get_reduced("llama3_2_3b")
+    n, f = 7, 1
+    stacked = poison_replicas(replicate_params(
+        init_model(0, cfg, device="cpu"), n, jitter=1e-3,
+        generator=torch.Generator().manual_seed(3)), f, "signflip",
+        scale=10.0)
+    spec = AggSpec(f=f, gar="bulyan-krum", distance_backend="fused")
+    params = {dev: tree_map(lambda p: p.to(dev), stacked)
+              for dev in ("cpu", card)}
+    prefill = make_robust_prefill_step(cfg, spec, cache_len=32)
+    step = make_robust_serve_step(cfg, spec)
+    tokens = np.asarray([[1, 2, 3, 4, 5], [6, 7, 8, 9, 10]], np.int32)
+    want = {"pairwise_gram_partial": 1, "select_weights": 1,
+            "fused_coordinate": 1, "fused_aggregate": 3, "bulyan_select": 0,
+            "coord_stats": 0}
+    aggs, caches = {}, {}
+    for dev in params:
+        _build.reset_launches()
+        aggs[dev], caches[dev], res = prefill(
+            params[dev], torch.as_tensor(tokens, device=dev))
+        assert float(res.selected[-1]) == 0.0
+        if dev != "cpu":
+            assert _build.LAUNCHES == want
+    token = torch.argmax(aggs["cpu"], dim=-1).to(torch.int32)[:, None]
+    for t in range(3):
+        pos = np.full((2,), 5 + t, np.int32)
+        stacks = {}
+        for dev in params:
+            stacks[dev] = torch.func.vmap(lambda p, c: decode_step(
+                p, cfg, c, token.to(dev), pos))(params[dev],
+                                                caches[dev])[0][:, :, 0]
+            _build.reset_launches()
+            aggs[dev], caches[dev], res, _ = step(
+                params[dev], caches[dev], token.to(dev), pos)
+            assert float(res.selected[-1]) == 0.0
+            if dev != "cpu":
+                assert _build.LAUNCHES == want
+        off = window_ties([stacks["cpu"]], [stacks[card].cpu()], f)[0]
+        assert int(off.sum()) * 1000 < off.numel(), int(off.sum())
+        got = aggs[card].cpu().reshape(-1)[~off]
+        ref = aggs["cpu"].reshape(-1)[~off]
+        assert float((got - ref).abs().max()) <= 1e-4 * float(
+            ref.abs().max()), t
+        token = torch.argmax(aggs["cpu"], dim=-1).to(torch.int32)[:, None]
