@@ -166,10 +166,40 @@ Phases, in order; any failure exits nonzero before the last line:
    per-token stream printed.  (9c) every family's ``reduced()`` config:
    the robust prefill step and 4 robust decode steps, exact launches per
    call, finite aggregates.
-10. One JSON line of per-kernel measurements (phase 8's K1, selection and
-   K4 on the embedding leaf and phase 9a's K1, selection, K4 and K5 on
-   the serving stack added), then the result line
-   ``{"ok": true, "device": {...}}``.
+10. The multi-rank runtime (``repro_torch.dist.mesh`` /
+   ``dist.sharding`` and the ``mesh=`` step), gloo ranks sharing the card
+   (``run_on_mesh(..., backend="gloo")``; the rank functions are
+   ``tests/torch_mesh_check.py``'s, since spawned ranks import them, and
+   the comparisons ``tests/torch_llm_compare.py``'s, the tests' rule):
+   (10a) 8a's gemma3-1b cut on a (1, 2) mesh, n = 7, f = 1,
+   ``bulyan-krum`` over ``fused`` (``pallas`` under the model axis),
+   ``omniscient_linf`` ("ones"), momentum SGD 1e-2, 3 steps, one worker
+   per ``vmap`` pass.  Every rank must launch K1 exactly 74 times per
+   step (once per local leaf slice) and nothing else; step 0's
+   all-reduced (7, 7) matrix and gathered aggregate must equal the
+   single-device ``xla`` backend's on the same submissions (gathered to
+   one rank) at 1e-4 of each leaf's largest entry with equal
+   ``selected``; K1 on each rank's (7, 150,994,944) embedding slice is
+   held to its float64 function at 1e-4 and timed (each rank with the
+   card to itself) beside its plain version and ``torch.mm``; after 3
+   steps each leaf's change must equal a single-device run's (its own
+   process) at 1e-4 of its largest change plus one ulp per step,
+   outside the coordinates where Bulyan's window ties on either run's
+   submissions or differs between them (under 1e-3 of the coordinates),
+   with the same selections every step (each counted step hands its own
+   submissions to the check through ``make_train_step``'s ``observe``
+   hook; one uncounted pass before them takes step 0's submissions for
+   the gate and the K1 check).  Readings: ms per step and rank,
+   seconds and bytes in collectives, peak memory per rank, where each
+   rank's time went.  (10b) reduced llama3.2-3b on a (2, 2) mesh of four
+   ranks, n = 8: 2 synchronous steps, 2 asynchronous steps at tau = 2
+   (``stale-bulyan-krum``) and 2 at tau = 0, against single-device runs
+   by the same rule, tau = 0 equal to the synchronous steps bit for bit,
+   exactly K1 11 per step and rank.
+11. One JSON line of per-kernel measurements (phase 8's K1, selection and
+   K4 on the embedding leaf, phase 9a's K1, selection, K4 and K5 on the
+   serving stack and phase 10a's K1 on a rank's embedding slice added),
+   then the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -177,6 +207,7 @@ import importlib
 import importlib.util
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -1816,18 +1847,18 @@ LLM_SLICE = 2 ** 25
 LLM_GRAM_TILE = 2 ** 20
 
 
-def llm_batch(np, rt, cfg, step: int, seq: int):
+def llm_batch(np, rt, cfg, step: int, seq: int, n: int = LLM_N):
     """One step's worker batch, ``(n, 1, seq)`` tokens and labels from
     ``lm_batches``; the audio and vlm models get seeded frame or patch
     embeddings as ``extra``."""
     toks, labs = zip(*(rt["lm_batches"](cfg.vocab_size, 1, seq,
-                                        step * LLM_N + w, seed=7)
-                       for w in range(LLM_N)))
+                                        step * n + w, seed=7)
+                       for w in range(n)))
     batch = {"tokens": np.stack(toks), "labels": np.stack(labs)}
     if cfg.arch_type in ("audio", "vlm"):
         rng = np.random.default_rng(step)
         batch["extra"] = rng.standard_normal(
-            (LLM_N, 1, cfg.encoder_seq or cfg.vision_seq, cfg.d_model)
+            (n, 1, cfg.encoder_seq or cfg.vision_seq, cfg.d_model)
         ).astype(np.float32)
     return batch
 
@@ -2579,6 +2610,273 @@ def phase_serve_reduced(torch, np, rt):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the multi-rank runtime (gloo ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+#: 10a: phase 8a's gemma3-1b cut on a (1, 2) mesh; 10b: reduced
+#: llama3.2-3b on a (2, 2) mesh, 8 workers; momentum SGD in both
+MESH_FULL, MESH_REDUCED = (1, 2), (2, 2)
+MESH_ARCH, MESH_N, MESH_STEPS, MESH_LR = "llama3_2_3b", 8, 2, 1e-2
+K1_ONLY = "pairwise_gram_partial"
+
+
+def mesh_grid(np, shape):
+    """What the sharding rules read of a mesh (this process is no rank)."""
+    import types
+    return types.SimpleNamespace(axis_names=("data", "model"),
+                                 devices=np.empty(shape))
+
+
+def hold_run(torch, cmp, got, want, init, steps: int, ties, what: str):
+    """Each leaf's change from ``init`` against the single-device run's at
+    1e-4 of its largest change (plus one fp32 ulp per step), the window
+    ties let off (``torch_llm_compare.change_ratio``), on the card;
+    returns the worst error over its limit."""
+    ratios = [cmp.change_ratio(g.cuda(), w.cuda(), p.cuda(), steps,
+                               None if ties is None else ties[k].cuda())
+              for k, (g, w, p) in enumerate(zip(got, want, init))]
+    bad = [(k, r) for k, r in enumerate(ratios) if not r <= 1.0]
+    expect(not bad, f"{what}: {len(bad)} of {len(ratios)} leaves' changes "
+           f"off the single-device run's beyond their limit: (leaf, error "
+           f"over limit) {[(k, round(r, 3)) for k, r in bad[:12]]}")
+    return max(ratios)
+
+
+def single_device_run(torch, rt, cfg, spec, batches, seed: int,
+                      asynchronous: bool = False):
+    """10b's single-device step (or asynchronous step) over ``batches``:
+    ``(initial leaves, per step (leaves after it, the stack it
+    aggregated, the bus versions or None))``, on the CPU; the stack is
+    the step's submissions (taken before it) or the bus after it."""
+    opt = rt["get_optimizer"]("momentum", MESH_LR)
+    params = rt["init_model"](seed, cfg, device="cuda")
+    init = [p.cpu() for p in rt["tree_leaves"](params)]
+    state = opt.init(params)
+    if asynchronous:
+        step = rt["make_async_train_step"](cfg, spec, opt)
+        agg = rt["init_async_state"](spec, params, batches[0][
+            "tokens"].shape[0])
+    else:
+        subs = []
+        step = rt["make_train_step"](
+            cfg, spec, opt, observe=lambda sub, res: subs.append(
+                [x.cpu() for x in rt["tree_leaves"](sub)]))
+    rows = []
+    for b in batches:
+        if asynchronous:
+            params, state, _, agg = step(params, state, b, agg)
+            stack = [x.cpu() for x in rt["tree_leaves"](agg.bus.grads)]
+            versions = agg.bus.versions.cpu()
+        else:
+            params, state, _ = step(params, state, b)
+            stack, versions = subs[-1], None
+        rows.append(([p.cpu() for p in rt["tree_leaves"](params)], stack,
+                     versions))
+    del params, state, step
+    torch.cuda.empty_cache()
+    return init, rows
+
+
+def phase_mesh_full(torch, rt, smi):
+    """10a: phase 8a's gemma3-1b cut (516,705,408 parameters, 74 leaves)
+    on a (1, 2) mesh of two gloo ranks sharing the card: ``bulyan-krum``
+    over ``fused`` (``pallas`` under the model axis: K1 on each rank's
+    slice of every leaf), ``omniscient_linf`` ("ones"), momentum SGD
+    1e-2, n = 7, f = 1, 3 steps, one worker per ``vmap`` pass."""
+    import dataclasses
+    import numpy as np
+    mc, cmp = rt["mesh_check"], rt["compare"]
+    cfg = dataclasses.replace(rt["get_config"](LLM_ARCH),
+                              n_layers=LLM_LAYERS)
+    batches = [llm_batch(np, rt, cfg, t, LLM_SEQ) for t in range(LLM_STEPS)]
+    spec = rt["DistByzantineSpec"](f=LLM_F, gar="bulyan-krum",
+                                   attack="omniscient_linf",
+                                   distance_backend="fused")
+    # every process below starts with the card to itself and this one
+    # holds nothing large on it while they run
+    torch.cuda.empty_cache()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    print(f"  10a this process holds "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB of the card",
+          flush=True)
+    args = (LLM_ARCH, LLM_LAYERS, LLM_N, LLM_F, batches, LLM_STEPS, MESH_LR,
+            0, 1)
+    t0 = time.perf_counter()
+    single = rt["run_on_mesh"](mc.single_rank, (1, 1), args=args,
+                               device="cuda", backend="gloo",
+                               timeout=900)[0]
+    res = rt["run_on_mesh"](mc.llm_rank, MESH_FULL, args=args,
+                            device="cuda", backend="gloo", timeout=900)
+    wall = time.perf_counter() - t0
+    losses, single_ms, after = (single["losses"], single["step_ms"],
+                                single["after"])
+    params = rt["init_model"](0, cfg, device="cuda")
+    template = rt["tree_map"](lambda p: torch.empty(
+        tuple(p.shape), dtype=p.dtype, device="meta"), params)
+    init = rt["tree_leaves"](params)
+    for r in res:
+        for t, counts in enumerate(r["launches"]):
+            expect_launches(counts, per_step({K1_ONLY: LLM_LEAVES}),
+                            f"10a rank {r['coords']} step {t}")
+        expect(r["losses"] == res[0]["losses"],
+               f"10a: rank losses {r['losses']} vs {res[0]['losses']}")
+    for a, b in zip(res[0]["losses"], losses):
+        expect(abs(a - b) <= FP32_TOL * max(1.0, abs(b)),
+               f"10a: losses {res[0]['losses']} vs single-device {losses}")
+    gate = res[0]["step0"]
+    print(f"  ok  10a step 0 on the same submissions: all-reduced (7, 7) "
+          f"{gate['dists_rel']:.2e} and gathered aggregate "
+          f"{gate['agg_rel']:.2e} of each leaf's largest entry off the "
+          f"single-device xla backend, selected equal "
+          f"{gate['selected']}", flush=True)
+    for r in res:
+        k = r["k1"]
+        expect(k["rel_err"] <= FP32_TOL, f"10a K1 shard: {k['rel_err']}")
+        print(f"  ok  10a rank {r['coords']}: K1 on its embedding slice "
+              f"{k['shape']} {k['rel_err']:.2e} of the largest entry off "
+              f"its float64 function (the fp32 plain version "
+              f"{k['plain_rel_err']:.2e}); {k['ms']:.3f} ms (CUDA events,"
+              f" the card alone), plain {k['plain_ms']:.3f} ms, torch.mm "
+              f"{k['library_ms']:.3f} ms", flush=True)
+    grid = mesh_grid(np, MESH_FULL)
+    pspecs = rt["param_shardings"](template, grid)
+    tspecs = rt["per_worker_specs"](rt["gram_shardings"](template, grid))
+    for t, (a, b) in enumerate(zip(res[0]["selected"], single["selected"])):
+        expect(a == b, f"10a step {t}: selected {a} vs single-device {b}")
+    got = mc.gather_slices([r["params"] for r in res], pspecs)
+    ties = cmp.let_off(mc.whole_windows([r["windows"] for r in res],
+                                        tspecs), single["windows"])
+    tied = sum(int(x.sum()) for x in ties)
+    expect(tied <= 1e-3 * LLM_PARAMS, f"10a: {tied:,} window ties")
+    worst = hold_run(torch, cmp, got, after, init, LLM_STEPS, ties,
+                     "10a 3 steps")
+    del params, init, got, after
+    print(f"  ok  10a 3 steps: parameters against the single-device run, "
+          f"each leaf's change at {worst:.3f} of its limit (1e-4 of its "
+          f"largest change plus one ulp per step) outside {tied:,} window "
+          f"ties of {LLM_PARAMS:,} coordinates; launches per step and rank "
+          f"K1 {LLM_LEAVES}, select / K2 / K3 / K4 / K5 0; losses "
+          f"{[round(v, 5) for v in res[0]['losses']]}", flush=True)
+    for r in res:
+        print(f"  10a rank {r['coords']}: ms per step "
+              f"{[round(v, 1) for v in r['step_ms']]} (median "
+              f"{r['median_step_ms']:.1f}), in collectives "
+              f"{[round(v * 1e3, 1) for v in r['comm_s']]} ms "
+              f"({r['comm_bytes'][-1] / 2 ** 30:.2f} GiB of results per "
+              f"step), peak {max(r['step_peak_gib']):.1f} GiB during a "
+              f"step ({smi})", flush=True)
+    for r in res:
+        sec = r["seconds"]
+        print(f"  10a rank {r['coords']} seconds: step 0's submissions "
+              f"for the gate {sec['gate_pass']:.2f}, K1 on the slice "
+              f"{sec['k1']:.2f}, step 0's gate {sec['gate']:.2f}, the "
+              f"window codes in each step "
+              f"{[round(v, 2) for v in sec['windows']]} (out of its ms)",
+              flush=True)
+    print(f"  10a single-device run: the window codes in each step "
+          f"{[round(v, 2) for v in single['seconds']['windows']]} s",
+          flush=True)
+    print(f"  10a single-device ms per step "
+          f"{[round(v, 1) for v in single_ms]} (peak "
+          f"{single['peak_gib']:.1f} GiB); the two runs took {wall:.1f} s",
+          flush=True)
+    k = res[0]["k1"]
+    n, d = k["shape"]
+    row = dict(ms=k["ms"], plain_ms=k["plain_ms"],
+               library_ms=k["library_ms"], max_abs_err=k["max_abs_err"],
+               **bound(n, d, LLM_F, K1_ONLY, 4))
+    return {"row": row, "launches": sum(c[K1_ONLY]
+                                        for c in res[0]["launches"])}
+
+
+def stale_scaled(rt, leaves, versions, step: int):
+    """The bus as ``stale-<base>`` hands it to its base: each worker's row
+    times ``1 / (1 + staleness)`` over the freshest worker's."""
+    import torch
+    s = (step - versions.to(torch.int64)).clamp_min(0).to(torch.float32)
+    w = 1.0 / (1.0 + s)
+    w = w / w.max()
+    return [x * w.reshape((-1,) + (1,) * (x.dim() - 1)) for x in leaves]
+
+
+def stack_windows(torch, rt, cmp, leaves, f: int):
+    """Bulyan(krum)'s picks from a step's stack's own distances, then
+    ``torch_llm_compare.leaf_windows`` per leaf."""
+    leaves = [x.cuda() for x in leaves]
+    dist = rt["pairwise_gram_tree"](leaves)
+    idx = rt["select_indices_from_dists"](dist, f, base="krum")
+    return [cmp.leaf_windows(x[idx].reshape(len(idx), -1), f).cpu()
+            for x in leaves]
+
+
+def phase_mesh_reduced(torch, rt):
+    """10b: reduced llama3.2-3b on a (2, 2) mesh of four gloo ranks
+    sharing the card, n = 8, f = 1: 2 synchronous steps, 2 asynchronous
+    steps at tau = 2 (``stale-bulyan-krum``) and at tau = 0, each against
+    the single-device step, exact launches per step."""
+    import numpy as np
+    mc, cmp = rt["mesh_check"], rt["compare"]
+    cfg = rt["get_reduced"](MESH_ARCH)
+    batches = [llm_batch(np, rt, cfg, t, 64, MESH_N)
+               for t in range(MESH_STEPS)]
+    t0 = time.perf_counter()
+    res = rt["run_on_mesh"](
+        mc.reduced_rank, MESH_REDUCED, args=(MESH_ARCH, MESH_N, LLM_F,
+                                             batches, MESH_STEPS, MESH_LR,
+                                             1),
+        device="cuda", backend="gloo", timeout=600)
+    wall = time.perf_counter() - t0
+    n_leaves = len(rt["tree_leaves"](res[0]["sync"][0]["params"]))
+    for r in res:
+        for run in ("sync", "async", "async0"):
+            for t, row in enumerate(r[run]):
+                expect_launches(row["launches"],
+                                per_step({K1_ONLY: n_leaves}),
+                                f"10b {run} rank {r['coords']} step {t}")
+                for a, b in zip(rt["tree_leaves"](row["params"]),
+                                rt["tree_leaves"](res[0][run][t]["params"])):
+                    expect(torch.equal(a, b), f"10b {run}: ranks differ")
+        expect(r["tau0_is_sync"], "10b: tau = 0 differs from the "
+               "synchronous step")
+    kw = dict(f=LLM_F, attack="omniscient_linf", distance_backend="fused")
+    spec = rt["DistByzantineSpec"](gar="bulyan-krum", **kw)
+    aspec = rt["DistByzantineSpec"](gar="stale-bulyan-krum", async_tau=2,
+                                    **kw)
+    init, sync_rows = single_device_run(torch, rt, cfg, spec, batches, 1)
+    _, async_rows = single_device_run(torch, rt, cfg, aspec, batches, 1,
+                                      asynchronous=True)
+    worst, tied = 0.0, 0
+    for run, single in (("sync", sync_rows), ("async", async_rows)):
+        windows = ([], [])
+        for t, (row, (after, stack, versions)) in enumerate(zip(
+                res[0][run], single)):
+            if run == "sync":
+                mine = rt["tree_leaves"](row["sub"])
+            else:
+                mine = stale_scaled(rt, rt["tree_leaves"](row["bus"]),
+                                    row["versions"], t)
+                stack = stale_scaled(rt, stack, versions, t)
+            windows[0].append(stack_windows(torch, rt, cmp, mine, LLM_F))
+            windows[1].append(stack_windows(torch, rt, cmp, stack, LLM_F))
+            ties = cmp.let_off(*windows)
+            worst = max(worst, hold_run(
+                torch, cmp, rt["tree_leaves"](row["params"]), after, init,
+                t + 1, ties, f"10b {run} step {t}"))
+        tied += sum(int(x.sum()) for x in ties)
+    expect(tied <= 2e-3 * sum(x.numel() for x in init),
+           f"10b: {tied:,} window ties")
+    m = res[0]["async"][-1]["metrics"]
+    print(f"  ok  10b {cfg.name} on (2, 2), n = {MESH_N}: synchronous and "
+          f"tau = 2 steps against the single-device ones at {worst:.3f} of "
+          f"the limit ({tied} window-tie coordinates let off), tau = 0 == "
+          f"synchronous bit for bit, launches K1 {n_leaves} per step and "
+          f"rank (select / K2 / K3 / K4 / K5 0); tau = 2 step 1 delivered "
+          f"{m['delivered']:.0f}, staleness max {m['staleness_max']:.0f}; "
+          f"{wall:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 def print_ptxas(log: pathlib.Path) -> None:
     """One line per kernel of an ``-Xptxas -v`` build log: its (mangled)
@@ -2605,7 +2903,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # phase 10's rank functions and the tests' comparison rule; spawned
+    # ranks inherit this path
+    sys.path.append(str(ROOT / "tests"))
 
+    t_start = time.perf_counter()
     smi = smi_line()
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2643,6 +2945,11 @@ def main() -> int:
     from repro_torch.dist import serve_robust
     from repro_torch.models import decode_step, init_model, verify_supported
     from repro_torch.serving import Request, ServingEngine
+    from repro_torch.core.pytree import tree_map
+    from repro_torch.dist import async_train, sharding
+    import torch_llm_compare as compare
+    import torch_mesh_check as mesh_check
+    from repro_torch.dist.mesh import run_on_mesh
     rt = dict(simple=simple, trainer=trainer, fused_agg=fused_agg,
               build=_build, AggSpec=AggSpec, unflatten=unflatten,
               ByzantineBatcher=ByzantineBatcher, mnist_like=mnist_like,
@@ -2670,7 +2977,14 @@ def main() -> int:
               make_robust_prefill_step=serve_robust.make_robust_prefill_step,
               make_robust_serve_step=serve_robust.make_robust_serve_step,
               ServingEngine=ServingEngine, Request=Request,
-              decode_step=decode_step, verify_supported=verify_supported)
+              decode_step=decode_step, verify_supported=verify_supported,
+              tree_map=tree_map, mesh_check=mesh_check, compare=compare,
+              run_on_mesh=run_on_mesh,
+              param_shardings=sharding.param_shardings,
+              gram_shardings=sharding.gram_shardings,
+              per_worker_specs=sharding.per_worker_specs,
+              make_async_train_step=async_train.make_async_train_step,
+              init_async_state=async_train.init_async_state)
     ops = {"fused_agg": fused_agg, "pairwise_gram": pairwise_gram,
            "bulyan_select": bulyan_select, "coord_stats": coord_stats}
 
@@ -2731,6 +3045,8 @@ def main() -> int:
     k2_yardsticks(torch, ops, timer)
     time_select_modes(torch, ops, timer)
 
+    print(f"  phases 1-6 took {time.perf_counter() - t_start:.1f} s "
+          f"({smi})", flush=True)
     print("== phase 7: telemetry and audit", flush=True)
     import numpy as np
     t7 = time.perf_counter()
@@ -2763,6 +3079,14 @@ def main() -> int:
     phase_serve_speculative(torch, np, rt, smi)
     phase_serve_reduced(torch, np, rt)
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s ({smi})",
+          flush=True)
+
+    print("== phase 10: the multi-rank runtime (gloo ranks sharing the "
+          "card)", flush=True)
+    t10 = time.perf_counter()
+    mesh = phase_mesh_full(torch, rt, smi)
+    phase_mesh_reduced(torch, rt)
+    print(f"  phase 10 took {time.perf_counter() - t10:.1f} s ({smi})",
           flush=True)
 
     kernels = []
@@ -2803,6 +3127,16 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    expect(mesh["launches"] > 0, "K1 was not launched on the mesh path")
+    r = mesh["row"]
+    kernels.append({
+        "name": f"{K1_ONLY}@{LLM_ARCH}-mesh", "route": "cuda",
+        "source": SOURCES[K1_ONLY], "replaces": REPLACES[K1_ONLY],
+        "launches": mesh["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    print(f"  the script took {time.perf_counter() - t_start:.1f} s "
+          f"({smi})", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

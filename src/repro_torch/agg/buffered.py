@@ -22,6 +22,7 @@ import torch
 from repro_torch.agg.registry import (AggregatorRule, TreeAgg, TreeContext,
                                      register_rule, register_tree_impl)
 from repro_torch.agg.state import AggState
+from repro_torch.core.pytree import sum_in_order
 from repro_torch.core.types import AggResult
 
 __all__ = ["centered_clip_momentum", "make_buffered"]
@@ -32,7 +33,8 @@ _ITERS = 3
 
 def _clip_fixed_point(leaves: Sequence[torch.Tensor], n: int, cdt,
                       v0: Sequence[torch.Tensor], tau: float = _TAU,
-                      iters: int = _ITERS) -> List[torch.Tensor]:
+                      iters: int = _ITERS,
+                      total=None) -> List[torch.Tensor]:
     """Clip worker deviations from a running center, ``iters`` times.
 
     Args:
@@ -42,6 +44,9 @@ def _clip_fixed_point(leaves: Sequence[torch.Tensor], n: int, cdt,
       v0: initial center leaves, ``(*dims,)`` each.
       tau: clipping radius.
       iters: fixed-point iterations.
+      total: maps the per-leaf ``(n,)`` squared norms to the whole
+        deviation's (``TreeContext.total``; ``None``: their sum in leaf
+        order).
 
     Returns:
       The converged center leaves.
@@ -49,10 +54,9 @@ def _clip_fixed_point(leaves: Sequence[torch.Tensor], n: int, cdt,
     v = list(v0)
     for _ in range(iters):
         deltas = [l - vi[None] for l, vi in zip(leaves, v)]
-        norm2 = torch.zeros((n,), dtype=cdt, device=leaves[0].device)
-        for dlt in deltas:
-            norm2 = norm2 + torch.sum(dlt * dlt,
-                                      dim=tuple(range(1, dlt.ndim)))
+        norm2 = (total or sum_in_order)([
+            torch.sum(dlt * dlt, dim=tuple(range(1, dlt.ndim)))
+            for dlt in deltas])
         scale = torch.clamp_max(
             tau / torch.clamp_min(torch.sqrt(norm2), 1e-12), 1.0)
         v = [vi + torch.mean(
@@ -65,7 +69,7 @@ def _clip_fixed_point(leaves: Sequence[torch.Tensor], n: int, cdt,
 def _centered_clip_tree(ctx: TreeContext) -> TreeAgg:
     leaves = [l.to(ctx.cdt) for l in ctx.leaves]
     v0 = [torch.mean(l, dim=0) for l in leaves]
-    v = _clip_fixed_point(leaves, ctx.n, ctx.cdt, v0)
+    v = _clip_fixed_point(leaves, ctx.n, ctx.cdt, v0, total=ctx.total)
     return TreeAgg(v, ctx.uniform(), ctx.zeros())
 
 
@@ -108,7 +112,7 @@ def _centered_clip_momentum_tree(ctx: TreeContext, state: AggState
         v0 = [torch.mean(l, dim=0) for l in leaves]
     else:
         v0 = [c.to(ctx.cdt) for c in state.center]
-    v = _clip_fixed_point(leaves, ctx.n, ctx.cdt, v0)
+    v = _clip_fixed_point(leaves, ctx.n, ctx.cdt, v0, total=ctx.total)
     new = state._replace(step=state.step + 1,
                          center=tuple(c.to(torch.float32) for c in v))
     return TreeAgg(v, ctx.uniform(), ctx.zeros()), new

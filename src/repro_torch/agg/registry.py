@@ -76,6 +76,9 @@ class TreeContext:
         squared-distance matrix through the configured backend.
       coordinate_phase: ``(stack, f) -> agg``, the engine's windowed
         Bulyan phase 2.
+      reduce: maps per-leaf partial reductions over coordinates to their
+        total over the whole coordinate space (``None``: their sum in
+        leaf order; under a mesh the engine all-reduces the slices').
     """
 
     leaves: Tuple[torch.Tensor, ...]
@@ -84,6 +87,7 @@ class TreeContext:
     cdt: Any
     make_dists: Callable[[Sequence[torch.Tensor]], torch.Tensor]
     coordinate_phase: Callable[[torch.Tensor, int], torch.Tensor]
+    reduce: Optional[Callable[[Sequence[torch.Tensor]], torch.Tensor]] = None
 
     def dists(self) -> torch.Tensor:
         """``(n, n)`` squared distances over the concatenated coordinate
@@ -101,6 +105,13 @@ class TreeContext:
           new leaves through the same backend closure.
         """
         return dataclasses.replace(self, leaves=tuple(leaves))
+
+    def total(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The total over the whole coordinate space of per-leaf partial
+        reductions (``parts[k]`` from leaf ``k``), through ``reduce``."""
+        # imported here: ``repro_torch.core`` imports this module
+        from repro_torch.core.pytree import sum_in_order
+        return (self.reduce or sum_in_order)(parts)
 
     def uniform(self) -> torch.Tensor:
         """Uniform ``(n,)`` selection weights ``1/n`` in ``cdt``."""

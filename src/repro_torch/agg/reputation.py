@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.agg.registry import AggregatorRule
 from repro_torch.agg.state import AggState
+from repro_torch.core.pytree import sum_in_order
 
 __all__ = ["DEFAULT_REP_DECAY", "DEFAULT_REP_LR", "blend_stack",
            "make_reputation", "reputation_scale", "reputation_scores",
@@ -145,7 +146,7 @@ def blend_stack(leaf: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def tree_reputation_scores(leaves: Sequence[torch.Tensor],
                            agg_leaves: Sequence[torch.Tensor],
-                           rep_ndim: int = 1) -> torch.Tensor:
+                           rep_ndim: int = 1, total=None) -> torch.Tensor:
     """:func:`reputation_scores` over a tree: the dot product and both
     squared norms accumulated leaf by leaf, one cosine over the
     concatenated coordinate space.
@@ -154,23 +155,24 @@ def tree_reputation_scores(leaves: Sequence[torch.Tensor],
       leaves: worker-stacked ``(n, *dims)`` leaves.
       agg_leaves: target leaves of shapes ``dims``.
       rep_ndim: rank of the score array.
+      total: maps per-leaf partial sums to their total over the whole
+        coordinate space (``TreeContext.total``, which all-reduces the
+        slices under a mesh; ``None``: the sums in leaf order).
 
     Returns:
       ``(n,)`` (or ``(n, batch)``) fp32 scores in [0, 1].
     """
-    dev = leaves[0].device
-    num = torch.zeros((), dtype=torch.float32, device=dev)
-    g2 = torch.zeros((), dtype=torch.float32, device=dev)
-    t2 = torch.zeros((), dtype=torch.float32, device=dev)
+    nums, g2s, t2s = [], [], []
     for leaf, agg in zip(leaves, agg_leaves):
         g = leaf.to(torch.float32)
         t = agg.to(torch.float32)
         red = tuple(range(rep_ndim, g.ndim))
         tred = tuple(range(rep_ndim - 1, t.ndim))
-        num = num + torch.sum(g * t[None], dim=red)
-        g2 = g2 + torch.sum(g * g, dim=red)
-        t2 = t2 + torch.sum(t * t, dim=tred)
-    return _cosine_scores(num, g2, t2)
+        nums.append(torch.sum(g * t[None], dim=red))
+        g2s.append(torch.sum(g * g, dim=red))
+        t2s.append(torch.sum(t * t, dim=tred))
+    total = total or sum_in_order
+    return _cosine_scores(total(nums), total(g2s), total(t2s))
 
 
 def _clamp_f(base: AggregatorRule, n: int, f: int) -> int:
@@ -233,7 +235,7 @@ def make_reputation(name: str, base: AggregatorRule,
                 out = base.tree_fn(sctx)
                 state = state._replace(step=state.step + 1)
             scores = tree_reputation_scores(ctx.leaves, out.leaves,
-                                            rep.ndim)
+                                            rep.ndim, total=ctx.total)
             return out, state._replace(
                 reputation=update_reputation(rep, scores, rep_lr,
                                              rep_decay))

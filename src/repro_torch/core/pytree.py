@@ -14,8 +14,8 @@ from typing import Any, Callable, List, Tuple
 
 import torch
 
-__all__ = ["aggregate_pytree", "stack_flatten", "tree_leaves", "tree_map",
-           "tree_unflatten", "unflatten"]
+__all__ = ["aggregate_pytree", "stack_flatten", "sum_in_order",
+           "tree_leaves", "tree_map", "tree_unflatten", "unflatten"]
 
 
 def tree_leaves(tree: Any) -> List[torch.Tensor]:
@@ -79,6 +79,15 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     others = [tree_leaves(t) for t in rest]
     return tree_unflatten(tree, [fn(*xs) for xs in
                                  zip(tree_leaves(tree), *others)])
+
+
+def sum_in_order(parts: List[torch.Tensor]) -> torch.Tensor:
+    """Per-leaf partial reductions added in leaf order, from zeros: one
+    device's total over a tree's coordinates."""
+    out = torch.zeros_like(parts[0])
+    for p in parts:
+        out = out + p
+    return out
 
 
 def stack_flatten(stacked_tree: Any) -> Tuple[torch.Tensor, Any]:

@@ -13,21 +13,27 @@ whenever a slot would exceed its bound.  Both deliver everyone at step
 delivers everyone every step (the synchronous special case).
 
 The flat trainer (``repro_torch.training.trainer
-.make_async_byzantine_step``) drives the bus.  The sharded asynchronous
-train step, ``make_async_train_step``, waits for the multi-rank runtime
-(ROADMAP item 6).
+.make_async_byzantine_step``) drives the bus, and so does
+:func:`make_async_train_step`, the asynchronous form of
+``repro_torch.dist.train.make_train_step`` over the model zoo, on one
+device or on every rank of a mesh (``mesh=``: the bus then holds this
+rank's ``gram_pspec`` slices of every worker's row).  The delay
+schedule binds only the honest workers: under an attack the last f
+deliver every step with a fresh version.  At ``async_tau = 0`` the
+step reproduces the synchronous one bit for bit.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.pytree import tree_leaves, tree_unflatten
 
-__all__ = ["GradientBus", "delivery_mask", "init_bus", "resolve_tau",
-           "staleness_excess", "update_bus"]
+__all__ = ["GradientBus", "delivery_mask", "init_async_state", "init_bus",
+           "make_async_train_step", "resolve_tau", "staleness_excess",
+           "update_bus"]
 
 
 class GradientBus(NamedTuple):
@@ -190,3 +196,131 @@ def staleness_excess(bus: GradientBus, step: int,
     """
     return torch.clamp_min((int(step) - bus.versions)
                            - tau.to(bus.versions.device), 0)
+
+
+def init_async_state(spec, params: Any, n_workers: int, mesh=None):
+    """Zeroed ``AggState`` carrying the bus for the asynchronous step.
+
+    The asynchronous step always carries a state, since the bus is the
+    asynchrony: a stateful rule gets its own buffers beside the bus, a
+    plain rule only ``step`` and the bus.
+
+    Args:
+      spec: the protocol spec (``gar`` / ``history_window`` select the
+        rule).
+      params: the parameter tree; only shapes and dtypes are read (under
+        a mesh, the global tree: ``"meta"`` tensors work).
+      n_workers: worker count, the leading axis of the bus slots.
+      mesh: the step's mesh, or ``None``.
+
+    Returns:
+      An ``AggState`` whose bus holds zero ``(n_workers, *dims)`` slots
+      in the parameters' dtypes (under a mesh, this rank's
+      ``gram_pspec`` slices), with ``step = versions = 0``.
+    """
+    from repro_torch.agg.state import AggState, init_state
+    from repro_torch.dist.train import _state_template
+    rule = spec.rule()
+    template, dev = _state_template(params, n_workers, mesh)
+    if rule.stateful:
+        state = init_state(rule, template, flat=False, device=dev)
+    else:
+        state = AggState(step=0)
+    if state.bus == ():
+        state = state._replace(bus=init_bus(template, device=dev))
+    return state
+
+
+def make_async_train_step(cfg, spec, optimizer, impl: str = "auto",
+                          mesh=None, worker_chunk: Optional[int] = None,
+                          template=None) -> Callable:
+    """Build the asynchronous Byzantine train step over the model zoo.
+
+    Per step all n workers compute fresh gradients at the current
+    parameters; under an attack the last f rows are overwritten (the
+    delay attacks ``stale_replay`` / ``slow_drift`` also read their
+    previous slots); the delay schedule decides who delivers (the
+    Byzantine rows always do); the bus absorbs the deliveries and the
+    rule aggregates the slot stack.  With ``spec.async_tau = 0`` this
+    reproduces ``repro_torch.dist.train.make_train_step`` bit for bit.
+
+    Args:
+      cfg: the model configuration.
+      spec: the protocol spec; ``async_tau`` / ``async_schedule`` on top
+        of the synchronous fields.
+      optimizer: the port's optimizer.
+      impl: attention path of the forward.
+      mesh: ``None`` or this rank's mesh, as in
+        ``repro_torch.dist.train.make_train_step``.
+      worker_chunk: workers per ``vmap`` pass.
+      template: with a mesh, the global parameter tree (shapes only).
+
+    Returns:
+      ``step(params, opt_state, batch, agg_state) -> (params, opt_state,
+      metrics, agg_state)``, ``agg_state`` from :func:`init_async_state`;
+      the metrics add ``staleness_mean`` / ``staleness_max`` /
+      ``staleness_excess`` / ``delivered``.
+    """
+    from repro_torch.dist.robust import distributed_aggregate
+    from repro_torch.dist.train import (_MeshLayout, _finish,
+                                        _reputation_tail, _submissions,
+                                        make_loss_fn)
+    from repro_torch.obs.schema import async_extras
+    loss_fn = make_loss_fn(cfg, impl)
+    rule = spec.rule()
+    stateful = rule.stateful
+    reputed = "reputation" in rule.state_fields
+    layout = None if mesh is None else _MeshLayout(mesh, template)
+
+    def step(params, opt_state, batch, agg_state):
+        n = batch["tokens"].shape[0]
+        spec.validate(n, distributed=True)
+        n_h = n - spec.f
+        t = agg_state.step
+        attacked = spec.attack != "none" and spec.f > 0
+        prev = None
+        if attacked and spec.attack in ("stale_replay", "slow_drift"):
+            prev = tree_unflatten(agg_state.bus.grads, [
+                l[n_h:] for l in tree_leaves(agg_state.bus.grads)])
+        losses, grads, full = _submissions(
+            loss_fn, spec, params, batch, opt_state["step"], t,
+            worker_chunk, layout, prev=prev)
+        versions = agg_state.bus.versions
+        tau = resolve_tau(spec.async_tau, n, device=versions.device)
+        deliver = delivery_mask(t, versions, tau,
+                                schedule=spec.async_schedule, seed=spec.seed)
+        if attacked:
+            # Byzantine workers control their own arrival: they deliver
+            # every step, stamping a fresh version on adversarial content
+            deliver = deliver | (torch.arange(n, device=deliver.device)
+                                 >= n_h)
+        bus = update_bus(agg_state.bus, grads, t, deliver)
+        state_in = agg_state._replace(bus=bus)
+        out = distributed_aggregate(
+            bus.grads, spec.f_declared, spec.effective_gar,
+            agg_dtype=spec.agg_dtype,
+            distance_backend=spec.distance_backend, mesh=mesh,
+            state=state_in if stateful else None,
+            history_window=spec.history_window,
+            rep_lr=spec.rep_lr, rep_decay=spec.rep_decay,
+            specs=None if layout is None else layout.gram_specs)
+        if stateful:
+            agg, res, new_state = out
+        else:
+            agg, res = out
+            new_state = state_in._replace(step=t + 1)
+        step_scale = None
+        if reputed:
+            # the clean-batch scores read the slot stack, what was
+            # aggregated
+            new_state, agg, step_scale = _reputation_tail(
+                spec, loss_fn, full, bus.grads, agg, res, agg_state,
+                new_state, layout)
+        staleness = t - bus.versions
+        extra = async_extras(staleness, staleness_excess(bus, t, tau),
+                             deliver)
+        return _finish(optimizer, params, opt_state, agg, bus.grads, losses,
+                       res, n_h, step_scale, layout,
+                       extra=extra) + (new_state,)
+
+    return step

@@ -33,22 +33,40 @@ Distance backends (``distance_backend=``):
             (``repro_torch.agg.fused``): the selection kernel and K4 per
             leaf, or K5 for a single-leaf tree; a rule with no fused
             lowering runs unchanged over K1;
-  "auto"    "xla": the reference picks its kernel only for a mesh with a
-            model axis, and the sharded runtime is not ported (ROADMAP
-            item 6), so ``mesh`` must be ``None``.
+  "auto"    "pallas" for CUDA tensors under a mesh whose ``model``
+            axis is larger than 1, "xla" everywhere else (the
+            reference's rule, with the card in the place of the TPU).
+
+With a ``mesh`` whose ``model`` axis is larger than 1 (``mesh=``, the
+multi-rank runtime: ``repro_torch.dist.mesh``), every leaf a rank passes
+is its local slice in the layout ``repro_torch.dist.sharding.gram_pspec``
+gives the leaf's global shape, and ``specs`` says which (a tree of
+``P``; ``None``: every leaf whole on every rank).  Each rank then runs
+one K1 (``pallas``) or one matrix product (``xla``) per local slice and
+the ``(n, n)`` partials of the sharded leaves are all-reduced over
+``model``, the replicated leaves' partials added once outside that sum
+(the reference's ``_pallas_sharded_dists``); ``fused`` degrades to
+``pallas``, as in the reference.  The selection is then the same on
+every rank, the coordinate phases run on the local slices, and every
+reduction over coordinates (the attacks' ``delta_bar``, norms, the
+reputation scores) is all-reduced the same way.  A replicated leaf must
+be the same on every rank of the ``model`` axis.
 """
 from __future__ import annotations
 
 import math
 from functools import partial
-from typing import Any, List, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.attacks import _alie_z, _anti_or_ones, _closed_gamma
 from repro_torch.core.bulyan import coordinate_phase
 from repro_torch.core.pytree import tree_leaves, tree_unflatten
+from repro_torch.dist.mesh import mesh_axis_sizes
 from repro_torch.kernels.pairwise_gram import (finalize_dists,
+                                               pairwise_gram_partial,
                                                pairwise_gram_tree)
 from repro_torch.obs.trace import named_span
 
@@ -95,57 +113,125 @@ def _compute_dtype(agg_dtype: str) -> torch.dtype:
 # distances
 # ---------------------------------------------------------------------------
 
-def resolve_distance_backend(distance_backend: str, mesh=None) -> str:
+def resolve_distance_backend(distance_backend: str, mesh=None,
+                             device=None) -> str:
     """Resolve the user-facing backend knob to a concrete implementation.
 
     Args:
       distance_backend: ``"xla"`` | ``"pallas"`` | ``"fused"`` |
         ``"auto"`` (see the module docstring; ``"pallas"`` names the
         port's K1 kernel).
-      mesh: must be ``None``: the sharded runtime is ROADMAP item 6.
+      mesh: the mesh of the sharded pass, or ``None``.
+      device: where the gradients live (``"auto"`` reads it).
 
     Returns:
-      ``"xla"``, ``"pallas"`` or ``"fused"``; ``"auto"`` resolves to
-      ``"xla"``, as the reference does without a mesh.  Raises
-      ``NotImplementedError`` for a mesh and ``ValueError`` for an
-      unknown name.
+      ``"xla"``, ``"pallas"`` or ``"fused"``: ``"auto"`` is ``"pallas"``
+      only for CUDA tensors under a mesh whose ``model`` axis is larger
+      than 1 (without the sharded pass the kernel would need every leaf
+      whole), else ``"xla"``; ``"fused"`` is ``"pallas"`` under such a
+      mesh (the fused composites run whole leaves).  Raises
+      ``ValueError`` for an unknown name.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= needs the sharded runtime, which is not ported yet "
-            "(ROADMAP item 6)")
+    model = 1 if mesh is None else mesh_axis_sizes(mesh).get("model", 1)
     if distance_backend == "auto":
-        return "xla"
-    if distance_backend not in ("xla", "pallas", "fused"):
+        on_card = device is not None and torch.device(device).type == "cuda"
+        return "pallas" if on_card and model > 1 else "xla"
+    if distance_backend == "fused":
+        return "pallas" if model > 1 else "fused"
+    if distance_backend not in ("xla", "pallas"):
         raise ValueError(
             f"distance_backend must be 'xla', 'pallas', 'fused' or "
             f"'auto', got {distance_backend!r}")
     return distance_backend
 
 
+class _Shards(NamedTuple):
+    """Where a tree's local leaves sit on a mesh's ``model`` axis."""
+
+    mesh: Any
+    #: per leaf, the dimension of the worker-stacked leaf split over
+    #: ``model``, or ``None`` for a leaf whole on every rank
+    dims: Tuple[Optional[int], ...]
+
+    def total(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """A reduction over the global coordinate space from per-leaf
+        partials: the sharded leaves' partials summed in leaf order and
+        all-reduced over ``model``, the replicated leaves' added once
+        outside that sum."""
+        sharded = torch.zeros_like(parts[0])
+        replicated = torch.zeros_like(parts[0])
+        for p, d in zip(parts, self.dims):
+            if d is None:
+                replicated = replicated + p
+            else:
+                sharded = sharded + p
+        if any(d is not None for d in self.dims):
+            sharded = self.mesh.all_reduce(sharded, "model")
+        return sharded + replicated
+
+    def factor(self, k: int) -> int:
+        """How many slices leaf ``k`` is cut into."""
+        return 1 if self.dims[k] is None else self.mesh.size("model")
+
+    def global_shape(self, k: int, leaf: torch.Tensor) -> Tuple[int, ...]:
+        """Leaf ``k``'s global per-worker shape from its local slice."""
+        shape = list(leaf.shape[1:])
+        if self.dims[k] is not None:
+            shape[self.dims[k] - 1] *= self.factor(k)
+        return tuple(shape)
+
+
+def _shards(mesh, specs, n_leaves: int) -> Optional[_Shards]:
+    """The :class:`_Shards` of a tree's leaves under ``mesh`` (``None``
+    without a ``model`` axis larger than 1: then every rank holds whole
+    leaves and the single-device code runs unchanged)."""
+    if mesh is None or mesh_axis_sizes(mesh).get("model", 1) <= 1:
+        return None
+    if specs is None:
+        return _Shards(mesh, (None,) * n_leaves)
+    from repro_torch.dist.sharding import _spec_leaves, model_dim
+    spec_leaves = _spec_leaves(specs)
+    if len(spec_leaves) != n_leaves:
+        raise ValueError(f"specs has {len(spec_leaves)} leaves, the tree "
+                         f"{n_leaves}")
+    dims = tuple(model_dim(spec) for spec in spec_leaves)
+    if 0 in dims:
+        raise ValueError("the worker axis of a gradient leaf is never "
+                         "split over 'model' (gram_pspec)")
+    return _Shards(mesh, dims)
+
+
 def pairwise_sq_dists_tree(tree: Any, compute_dtype=torch.float32, *,
-                           distance_backend: str = "xla",
-                           mesh=None) -> torch.Tensor:
+                           distance_backend: str = "xla", mesh=None,
+                           specs=None) -> torch.Tensor:
     """Squared euclidean distances over the concatenation of all leaves.
 
     Args:
-      tree: dict (or list) of ``(n, *dims)`` worker-stacked gradients.
+      tree: dict (or list) of ``(n, *dims)`` worker-stacked gradients
+        (under a mesh, this rank's slices; see the module docstring).
       compute_dtype: accumulation dtype of the ``"xla"`` backend and the
         dtype of the returned matrix (the kernel accumulates fp32).
       distance_backend: ``"xla"`` | ``"pallas"`` | ``"fused"`` |
         ``"auto"``; ``"fused"`` takes the same K1 pass as ``"pallas"``.
-      mesh: must be ``None`` (see :func:`resolve_distance_backend`).
+      mesh: the mesh of the sharded pass, or ``None``.
+      specs: the leaves' ``gram_pspec`` tree under a mesh (``None``:
+        every leaf whole).
 
     Returns:
       ``(n, n)`` squared distances in ``compute_dtype``, a sum of
-      per-leaf partial Grams; no flat ``(n, d)`` copy is built.
+      per-leaf partial Grams (the same on every rank of a mesh); no flat
+      ``(n, d)`` copy is built.
     """
     n = _worker_count(tree)
-    backend = resolve_distance_backend(distance_backend, mesh)
+    leaves = _leaves(tree)
+    backend = resolve_distance_backend(distance_backend, mesh,
+                                       leaves[0].device)
+    shards = _shards(mesh, specs, len(leaves))
     with named_span("agg/gram"):
+        if shards is not None:
+            return _sharded_dists(leaves, shards, backend, compute_dtype)
         if backend in ("pallas", "fused"):
             return pairwise_gram_tree(tree).to(compute_dtype)
-        leaves = _leaves(tree)
         dev = leaves[0].device
         gram = torch.zeros((n, n), dtype=compute_dtype, device=dev)
         sq = torch.zeros((n,), dtype=compute_dtype, device=dev)
@@ -156,9 +242,35 @@ def pairwise_sq_dists_tree(tree: Any, compute_dtype=torch.float32, *,
         return finalize_dists(sq[:, None] + sq[None, :] - 2.0 * gram)
 
 
+def _sharded_dists(leaves, shards: _Shards, backend: str,
+                   cdt) -> torch.Tensor:
+    """The sharded distance pass: one K1 (``pallas``) or one product
+    (``xla``) per local slice, then :meth:`_Shards.total` (the
+    reference's ``_pallas_sharded_dists``, and for ``xla`` the layout
+    GSPMD gives its per-leaf products)."""
+    n = leaves[0].shape[0]
+    if backend == "pallas":
+        raw = shards.total([pairwise_gram_partial(l) for l in leaves])
+        return finalize_dists(raw).to(cdt)
+    parts = []
+    for leaf in leaves:
+        x = leaf.to(cdt).reshape(n, -1)
+        parts.append(torch.cat([x @ x.T, torch.sum(x * x, dim=1)[:, None]],
+                               dim=1))
+    tot = shards.total(parts)
+    gram, sq = tot[:, :n], tot[:, n]
+    return finalize_dists(sq[:, None] + sq[None, :] - 2.0 * gram)
+
+
 # ---------------------------------------------------------------------------
 # coordinate phase over arbitrary trailing dims
 # ---------------------------------------------------------------------------
+
+#: coordinates of one pass of the coordinate phase when no window is
+#: given: the sort's int64 indices and the prefix sums of a (theta, d)
+#: stack take ~24 theta bytes per coordinate, ~2 GB at theta = 5, where a
+#: whole (5, 150,994,944) embedding slice would take ~18 GB
+_ONE_PASS = 2 ** 24
 
 def coordinate_phase_nd(selected: torch.Tensor, f: int,
                         window: Optional[int] = None) -> torch.Tensor:
@@ -169,18 +281,22 @@ def coordinate_phase_nd(selected: torch.Tensor, f: int,
       f: Byzantine bound; requires ``beta = theta - 2f >= 1``.
       window: caps the coordinates processed at once (the sort and the
         two cumulative sums need O(theta * window) workspace); ``None``
-        (or ``<= 0``) processes every coordinate in one shot.
+        (or ``<= 0``) takes ``_ONE_PASS``.  Every coordinate is computed
+        on its own, so the window changes the workspace, never a bit of
+        the result.
 
     Returns:
       ``(*dims,)``: per coordinate, the mean of the beta values closest
       to the median (``repro_torch.core.bulyan.coordinate_phase`` on the
-      flattened ``(theta, d)`` view, chunk by chunk when windowed).
+      flattened ``(theta, d)`` view, chunk by chunk).
     """
     trailing = selected.shape[1:]
     d = math.prod(trailing)
     flat = selected.reshape(selected.shape[0], d)
+    if window is None or window <= 0:
+        window = _ONE_PASS
     with named_span("agg/coordinate"):
-        if window is None or window <= 0 or d <= window:
+        if d <= window:
             return coordinate_phase(flat, f).reshape(trailing)
         chunks = [coordinate_phase(flat[:, s:s + window], f)
                   for s in range(0, d, window)]
@@ -197,39 +313,48 @@ def distributed_aggregate(tree: Any, f: int, gar: str = "bulyan-krum", *,
                           distance_backend: str = "auto", mesh=None,
                           state=None, history_window: Optional[int] = None,
                           rep_lr: Optional[float] = None,
-                          rep_decay: Optional[float] = None):
+                          rep_decay: Optional[float] = None, specs=None):
     """Apply GAR ``gar`` across the leading worker axis of a gradient tree,
     leaf by leaf.
 
     Contract (the reference's): the result equals the flat rule on
-    ``stack_flatten`` of the same tree, up to summation order.
+    ``stack_flatten`` of the same tree, up to summation order; under a
+    mesh, on the tree the ranks' slices make up.
 
     Args:
       tree: dict (or list, or one tensor) of ``(n, *dims)``
-        worker-stacked gradients, fp32 or bf16.
+        worker-stacked gradients, fp32 or bf16 (under a mesh with a
+        ``model`` axis, this rank's slices).
       f: Byzantine bound the rule defends against (quorum-checked).
       gar: any rule with a tree implementation: the registered rules,
         ``bulyan-krum``, ``bulyan-geomed``, ``fused-<base>`` and the
         stateful ``buffered-<base>``, ``centered_clip_momentum``,
-        ``stale[-inv|-exp]-<base>`` and ``reputation-<base>``.
+        ``stale[-inv|-exp]-<base>``, ``reputation-<base>`` and (without
+        a ``model`` axis) ``obs-<base>``.
       agg_dtype: ``"native"`` (fp32) | ``"float32"`` | ``"bfloat16"``.
       window: coordinate-phase window of the bulyan rules (see
         :func:`coordinate_phase_nd`).
       distance_backend: ``"xla"`` | ``"pallas"`` | ``"fused"`` |
         ``"auto"`` (see the module docstring).
-      mesh: must be ``None`` (ROADMAP item 6).
+      mesh: the mesh of the sharded pass (see the module docstring), or
+        ``None``.
       state: carried ``AggState`` of a stateful rule (``None``
-        zero-initializes one); stateless rules ignore it.
+        zero-initializes one); stateless rules ignore it.  Under a mesh
+        its buffers hold the same slices as the leaves.
       history_window: ``buffered-*`` window (``None``: the registry's
         default).
       rep_lr: ``reputation-*`` EMA rate (``None``: the default).
       rep_decay: ``reputation-*`` forgetting factor (``None``: the
         default).
+      specs: under a mesh, the leaves' ``gram_pspec`` tree (``None``:
+        every leaf whole on every rank).
 
     Returns:
       ``(aggregated tree, DistAggResult)`` for a stateless rule and
       ``(aggregated tree, DistAggResult, new_state)`` for a stateful
-      one; the aggregate's leaves keep their input dtypes.
+      one; the aggregate's leaves keep their input dtypes (under a mesh,
+      this rank's slices; the ``DistAggResult`` is the same on every
+      rank).
     """
     from repro_torch.agg.registry import TreeContext, resolve_rule
     from repro_torch.agg.specs import check_quorum
@@ -240,22 +365,30 @@ def distributed_aggregate(tree: Any, f: int, gar: str = "bulyan-krum", *,
                   rep_decay=rep_decay)
     rule = resolve_rule(gar, **params)
     check_quorum(gar, n, f, distributed=True, history_window=history_window)
-    backend = resolve_distance_backend(distance_backend, mesh)
+    leaves = _leaves(tree)
+    backend = resolve_distance_backend(distance_backend, mesh,
+                                       leaves[0].device)
     if backend == "fused":
         from repro_torch.agg.fused import fused_name
         lowered = fused_name(gar)
         if lowered is not None:
             rule = resolve_rule(lowered, **params)
+    shards = _shards(mesh, specs, len(leaves))
+    if shards is not None and "obs" in rule.state_fields:
+        raise ValueError(
+            f"{gar!r}: the obs- telemetry sketch reads whole leaves; under "
+            f"a mesh with a 'model' axis run the rule without telemetry")
     cdt = _compute_dtype(agg_dtype)
-    leaves = _leaves(tree)
 
     def make_dists(ls):
         return pairwise_sq_dists_tree(list(ls), cdt,
-                                      distance_backend=backend)
+                                      distance_backend=backend, mesh=mesh,
+                                      specs=specs)
 
     ctx = TreeContext(
         leaves=tuple(leaves), n=n, f=f, cdt=cdt, make_dists=make_dists,
-        coordinate_phase=partial(coordinate_phase_nd, window=window))
+        coordinate_phase=partial(coordinate_phase_nd, window=window),
+        reduce=None if shards is None else shards.total)
     if rule.stateful:
         if state is None:
             state = init_state(rule, tree, flat=False)
@@ -274,29 +407,92 @@ def distributed_aggregate(tree: Any, f: int, gar: str = "bulyan-krum", *,
 # per-leaf Byzantine injection
 # ---------------------------------------------------------------------------
 
-def _tree_delta_bar(honest_leaves) -> torch.Tensor:
+def _tree_delta_bar(honest_leaves, shards: Optional[_Shards] = None
+                    ) -> torch.Tensor:
     """Paper §B.1 ``delta_bar`` over the concatenated coordinate space,
     accumulated per leaf: 2/sqrt(pi) times the mean over coordinates of
     the per-coordinate population std (``jnp.std``, ddof 0) across the
-    honest workers."""
-    total = torch.zeros((), dtype=torch.float32,
-                        device=honest_leaves[0].device)
-    count = 0
-    for leaf in honest_leaves:
-        x = leaf.to(torch.float32)
-        total = total + torch.sum(torch.std(x, dim=0, correction=0))
-        count += math.prod(leaf.shape[1:])
+    honest workers (under a mesh, over every rank's slices)."""
+    if shards is None:
+        total = torch.zeros((), dtype=torch.float32,
+                            device=honest_leaves[0].device)
+        for leaf in honest_leaves:
+            x = leaf.to(torch.float32)
+            total = total + torch.sum(torch.std(x, dim=0, correction=0))
+    else:
+        total = shards.total([
+            torch.sum(torch.std(leaf.to(torch.float32), dim=0,
+                                correction=0)) for leaf in honest_leaves])
+    count = _coord_count(honest_leaves, shards)
     c = 2.0 / torch.sqrt(torch.tensor(math.pi, dtype=torch.float32))
     return c.to(total.device) * total / max(count, 1)
 
 
-def _lp_direction(means, leaves, coord, step):
+def _coord_count(leaves, shards: Optional[_Shards]) -> int:
+    """Coordinates per worker over the whole tree (every rank's slices)."""
+    return sum(math.prod(l.shape[1:]) * (1 if shards is None
+                                         else shards.factor(k))
+               for k, l in enumerate(leaves))
+
+
+def _to_global(k: int, q: int, leaf, shards: _Shards) -> int:
+    """Leaf ``k``'s flat index ``q`` in this rank's slice -> its flat
+    index in the whole leaf."""
+    if shards.dims[k] is None:
+        return q
+    idx = list(np.unravel_index(q, tuple(leaf.shape[1:])))
+    dim = shards.dims[k] - 1
+    idx[dim] += shards.mesh.index("model") * leaf.shape[shards.dims[k]]
+    return int(np.ravel_multi_index(idx, shards.global_shape(k, leaf)))
+
+
+def _to_local(k: int, q: int, leaf, shards: _Shards) -> Optional[int]:
+    """Leaf ``k``'s flat index ``q`` in the whole leaf -> its flat index
+    in this rank's slice, or ``None`` when another rank holds it."""
+    if shards.dims[k] is None:
+        return q
+    idx = list(np.unravel_index(q, shards.global_shape(k, leaf)))
+    dim = shards.dims[k] - 1
+    width = leaf.shape[shards.dims[k]]
+    if idx[dim] // width != shards.mesh.index("model"):
+        return None
+    idx[dim] %= width
+    return int(np.ravel_multi_index(idx, tuple(leaf.shape[1:])))
+
+
+def _top_coordinate(means, leaves, shards: _Shards):
+    """``omniscient_lp``'s ``"top"`` over every rank's slices: per leaf the
+    largest |mean| and the first flat index of the whole leaf holding it
+    (ranks' candidates gathered over ``model``), then the first leaf with
+    the largest.  Returns (global flat coordinate, sign)."""
+    rows = []
+    for k, (m, l) in enumerate(zip(means, leaves)):
+        a = torch.abs(m.reshape(-1))
+        arg = int(torch.argmax(a))
+        rows.append([float(a[arg]), _to_global(k, arg, l, shards),
+                     float(m.reshape(-1)[arg])])
+    mine = torch.tensor(rows, dtype=torch.float64)
+    every = shards.mesh.all_gather(mine[None], "model", 0)
+    best = []
+    for k in range(len(leaves)):
+        cands = mine[k:k + 1] if shards.dims[k] is None else every[:, k]
+        top = cands[cands[:, 0] == torch.max(cands[:, 0])]
+        best.append(top[torch.argmin(top[:, 1])])
+    j = int(torch.argmax(torch.stack([b[0] for b in best])))
+    off = sum(math.prod(shards.global_shape(i, l))
+              for i, l in enumerate(leaves[:j]))
+    return off + int(best[j][1]), -float(np.sign(float(best[j][2])))
+
+
+def _lp_direction(means, leaves, coord, step, shards=None):
     """(flat coordinate, sign) of ``omniscient_lp``'s one-hot direction,
     over the concatenated coordinate space in leaf order."""
-    d = sum(math.prod(l.shape[1:]) for l in leaves)
+    d = _coord_count(leaves, shards)
     if coord == "rotate":
         return (0 if step is None else int(step)) % d, 1.0
     if coord == "top":
+        if shards is not None:
+            return _top_coordinate(means, leaves, shards)
         # the coordinate where the honest mean is largest in magnitude,
         # attacked against its sign (first leaf, then first index, wins)
         flat = [m.reshape(-1) for m in means]
@@ -311,13 +507,40 @@ def _lp_direction(means, leaves, coord, step):
     return int(coord), 1.0
 
 
+def _draws(generator, leaves, shards: Optional[_Shards], lead, dtype=None):
+    """The random attacks' normal draws: each leaf's whole shape, with
+    ``lead`` in front, drawn from ``generator`` leaf after leaf (in
+    ``dtype``, else the leaf's), so a mesh draws what one device draws.
+
+    Returns:
+      ``(whole, local)``: the draws, and this rank's ``model`` slices of
+      them (the draws themselves on one device and for replicated
+      leaves).
+    """
+    whole, local = [], []
+    for k, l in enumerate(leaves):
+        shape = (tuple(l.shape[1:]) if shards is None
+                 else shards.global_shape(k, l))
+        x = torch.randn(tuple(lead) + shape, generator=generator,
+                        dtype=l.dtype if dtype is None else dtype,
+                        device=l.device)
+        whole.append(x)
+        if shards is not None and shards.dims[k] is not None:
+            width = l.shape[shards.dims[k]]
+            x = x.narrow(len(lead) + shards.dims[k] - 1,
+                         shards.mesh.index("model") * width, width)
+        local.append(x)
+    return whole, local
+
+
 def inject_byzantine(tree: Any, f: int, attack: str, generator=None, *,
                      gar_name: str = "krum", step=None, gamma=None,
                      scale: Optional[float] = None, eps: float = 0.5,
                      z: Optional[float] = None, target: int = 0,
                      coord=0, margin: float = 1.0,
                      direction: str = "ones", prev: Any = None,
-                     hold: int = 0, build: int = 5) -> Any:
+                     hold: int = 0, build: int = 5, mesh=None,
+                     specs=None) -> Any:
     """Replace the last ``f`` worker rows of every leaf with Byzantine
     submissions computed from the first ``n - f`` (honest) rows.
 
@@ -362,6 +585,14 @@ def inject_byzantine(tree: Any, f: int, attack: str, generator=None, *,
         off the current mean).
       hold: ``stale_replay``'s re-record period (0: freeze).
       build: ``reputation_burn``'s trust-building steps.
+      mesh: the mesh of the sharded pass, or ``None``: under a ``model``
+        axis larger than 1 the leaves are this rank's slices (``specs``:
+        their ``gram_pspec`` tree, ``None`` for whole leaves); every
+        reduction over coordinates covers all ranks' slices, ``coord``
+        indexes the whole tree, and the random draws are the single
+        device's (each leaf's whole shape drawn in leaf order, then this
+        rank's slice cut from it).
+      specs: the leaves' ``gram_pspec`` tree under a mesh.
 
     Returns:
       The tree with the last f rows of every leaf replaced; dtypes and
@@ -377,6 +608,7 @@ def inject_byzantine(tree: Any, f: int, attack: str, generator=None, *,
     honest = [l[:n_h] for l in leaves]
     dev = leaves[0].device
     t = 0 if step is None else int(step)
+    shards = _shards(mesh, specs, len(leaves))
     if generator is None and attack in ("random", "colluding_majority"):
         generator = torch.Generator(dev).manual_seed(0)
 
@@ -400,9 +632,7 @@ def inject_byzantine(tree: Any, f: int, attack: str, generator=None, *,
         byz = [broadcast(-eps * m, l) for m, l in zip(means(), leaves)]
     elif attack == "random":
         s = 10.0 if scale is None else scale
-        byz = [s * torch.randn((f,) + tuple(l.shape[1:]),
-                               generator=generator, dtype=l.dtype,
-                               device=dev) for l in leaves]
+        byz = [s * x for x in _draws(generator, leaves, shards, (f,))[1]]
     elif attack == "alie":
         if z is None:
             z = _alie_z(n, f)
@@ -423,7 +653,7 @@ def inject_byzantine(tree: Any, f: int, attack: str, generator=None, *,
                    else p.to(l.dtype)
                    for m, l, p in zip(ms, leaves, prevs)]
         else:
-            db = _tree_delta_bar(honest)
+            db = _tree_delta_bar(honest, shards)
             es = [_anti_or_ones(m, direction) for m in ms]
             byz = []
             for m, e, l, p in zip(ms, es, leaves, prevs):
@@ -440,19 +670,22 @@ def inject_byzantine(tree: Any, f: int, attack: str, generator=None, *,
         byz = [broadcast(factor * m, l) for m, l in zip(means(), leaves)]
     elif attack == "colluding_majority":
         # one unit direction over the concatenated coordinate space
-        db = _tree_delta_bar(honest)
+        db = _tree_delta_bar(honest, shards)
         ms = means()
         if direction == "anti":
             dirs = [-m for m in ms]
+            sq = (sum(torch.sum(e * e) for e in dirs) if shards is None
+                  else shards.total([torch.sum(e * e) for e in dirs]))
         else:
-            dirs = [torch.randn(tuple(l.shape[1:]), generator=generator,
-                                dtype=torch.float32, device=dev)
-                    for l in leaves]
-        norm = torch.sqrt(sum(torch.sum(e * e) for e in dirs)) + 1e-12
+            # every rank holds the whole draw: its norm is one device's
+            whole, dirs = _draws(generator, leaves, shards, (),
+                                 torch.float32)
+            sq = sum(torch.sum(e * e) for e in whole)
+        norm = torch.sqrt(sq) + 1e-12
         byz = [broadcast(m + eps * db * e / norm, l)
                for m, e, l in zip(ms, dirs, leaves)]
     elif attack in ("omniscient_linf", "omniscient_lp"):
-        db = _tree_delta_bar(honest)
+        db = _tree_delta_bar(honest, shards)
         ms = means()
         # gamma None and "closed" both mean the §B closed form here;
         # margin applies to the estimate only
@@ -466,17 +699,22 @@ def inject_byzantine(tree: Any, f: int, attack: str, generator=None, *,
             byz = [broadcast(m + g * e, l)
                    for m, e, l in zip(ms, es, leaves)]
         else:
-            d = sum(math.prod(l.shape[1:]) for l in leaves)
+            d = _coord_count(leaves, shards)
             g = (_closed_gamma(gar_name, d, f, db) * margin if estimated
                  else fixed)
-            c, sign = _lp_direction(ms, leaves, coord, step)
+            c, sign = _lp_direction(ms, leaves, coord, step, shards)
             byz, off = [], 0
-            for m, l in zip(ms, leaves):
+            for k, (m, l) in enumerate(zip(ms, leaves)):
                 e = torch.zeros_like(m).reshape(-1)
-                if off <= c < off + e.numel():
-                    e[c - off] = sign
+                size = e.numel() * (1 if shards is None
+                                    else shards.factor(k))
+                if off <= c < off + size:
+                    q = (c - off if shards is None
+                         else _to_local(k, c - off, l, shards))
+                    if q is not None:
+                        e[q] = sign
                 byz.append(broadcast(m + g * e.reshape(m.shape), l))
-                off += e.numel()
+                off += size
     else:
         raise KeyError(f"unknown distributed attack {attack!r}")
 

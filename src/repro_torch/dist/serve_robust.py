@@ -23,8 +23,9 @@ module is the serving side of ``repro_torch.dist.robust``:
   stateful rules carry an ``AggState`` across tokens.
 
 The continuous-batching engine is ``repro_torch.serving.engine``
-(``ServingEngine(..., ensemble=spec)``).  The sharded forms (``mesh=``)
-wait for the multi-rank runtime (ROADMAP item 6) and raise.
+(``ServingEngine(..., ensemble=spec)``).  The sharded forms (``mesh=``:
+replica stacks on ``data`` by ``ensemble_param_shardings``) are ROADMAP
+item 9 and raise.
 """
 from __future__ import annotations
 
@@ -151,6 +152,16 @@ def poison_replicas(stacked_params: Any, f: int, attack: str = "signflip",
 # logits aggregation (the one entry point every serving path shares)
 # ---------------------------------------------------------------------------
 
+def _serving_backend(distance_backend: str, mesh) -> str:
+    """The resolved backend of a serving path, which runs on one device:
+    ``mesh=`` raises until the sharded serving paths are ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= on the serving paths needs the sharded serving "
+            "runtime, which is not ported yet (ROADMAP item 9)")
+    return resolve_distance_backend(distance_backend)
+
+
 def aggregate_logits(logits: torch.Tensor, f: int, gar: str, *,
                      agg_dtype: str = "native",
                      distance_backend: str = "auto", mesh=None,
@@ -173,8 +184,8 @@ def aggregate_logits(logits: torch.Tensor, f: int, gar: str, *,
       agg_dtype: accumulation dtype (see ``repro_torch.dist.robust``).
       distance_backend: ``"xla"`` | ``"pallas"`` | ``"fused"`` |
         ``"auto"``.
-      mesh: must be ``None`` (ROADMAP item 6; ``distributed_aggregate``
-        raises).
+      mesh: must be ``None`` (the sharded serving paths are ROADMAP item
+        9).
       state: carried ``AggState`` of a stateful rule (``None``: zeros).
       history_window: ``buffered-*`` window (``None``: the default).
       rep_lr: ``reputation-*`` EMA rate (``None``: the default).
@@ -185,9 +196,10 @@ def aggregate_logits(logits: torch.Tensor, f: int, gar: str, *,
       ``(aggregate, DistAggResult)``, plus the new state for a stateful
       rule; the aggregate drops the replica axis and keeps the dtype.
     """
+    _serving_backend(distance_backend, mesh)
     out = distributed_aggregate(
         {"logits": logits}, f, gar, agg_dtype=agg_dtype,
-        distance_backend=distance_backend, mesh=mesh, state=state,
+        distance_backend=distance_backend, state=state,
         history_window=history_window, rep_lr=rep_lr, rep_decay=rep_decay)
     agg = out[0]["logits"]
     if len(out) == 3:
@@ -303,7 +315,7 @@ def make_robust_prefill_step(cfg: ModelConfig, spec: AggSpec,
       spec: the serving ``AggSpec``.
       cache_len: decode-cache positions (``0``: the prompt's length).
       impl: attention path of the prefill.
-      mesh: must be ``None`` (ROADMAP item 6; checked with the spec's
+      mesh: must be ``None`` (ROADMAP item 9; checked with the spec's
         backend when the step is built).
 
     Returns:
@@ -314,7 +326,7 @@ def make_robust_prefill_step(cfg: ModelConfig, spec: AggSpec,
       ``spec.gar`` (stateful rules from a zero state: the carried state
       starts on the decode stream), the caches replica-stacked.
     """
-    resolve_distance_backend(spec.distance_backend, mesh)
+    _serving_backend(spec.distance_backend, mesh)
 
     def prefill_step(stacked_params, tokens: torch.Tensor,
                      extra: Optional[torch.Tensor] = None):
@@ -341,7 +353,7 @@ def make_robust_serve_step(cfg: ModelConfig, spec: AggSpec,
       cfg: every replica's model configuration.
       spec: the serving ``AggSpec``; ``spec.attack`` (``"none"`` to
         disable) poisons the last ``spec.f`` replicas' logits.
-      mesh: must be ``None`` (ROADMAP item 6).
+      mesh: must be ``None`` (ROADMAP item 9).
 
     Returns:
       ``serve_step(stacked_params, stacked_cache, token, pos,
@@ -353,7 +365,7 @@ def make_robust_serve_step(cfg: ModelConfig, spec: AggSpec,
       int32; thread the returned state into the next call (``None`` for
       a stateless rule).
     """
-    resolve_distance_backend(spec.distance_backend, mesh)
+    _serving_backend(spec.distance_backend, mesh)
     stateful = spec.rule().stateful
 
     def serve_step(stacked_params, stacked_cache, token: torch.Tensor, pos,
@@ -384,7 +396,7 @@ def make_robust_verify_step(cfg: ModelConfig, spec: AggSpec,
         must hold).
       spec: the serving ``AggSpec`` (``spec.attack`` poisons every block
         position).
-      mesh: must be ``None`` (ROADMAP item 6).
+      mesh: must be ``None`` (ROADMAP item 9).
 
     Returns:
       ``verify(stacked_params, stacked_cache, tokens, pos,
@@ -395,7 +407,7 @@ def make_robust_verify_step(cfg: ModelConfig, spec: AggSpec,
     """
     from repro_torch.dist.robust import DistAggResult
     from repro_torch.models import verify_supported
-    resolve_distance_backend(spec.distance_backend, mesh)
+    _serving_backend(spec.distance_backend, mesh)
     ok, reason = verify_supported(cfg)
     if not ok:
         raise ValueError(

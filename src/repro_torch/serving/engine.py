@@ -74,7 +74,7 @@ class ServingEngine:
       sampler: ``"greedy"`` (the only sampler, as in the reference).
       ensemble: the serving ``AggSpec`` (``None``: plain mode).
       mesh: the ensemble's device mesh; must be ``None`` (ROADMAP item
-        6), unused in plain mode, as in the reference.
+        9), unused in plain mode, as in the reference.
     """
 
     def __init__(self, params, cfg: ModelConfig, n_slots: int = 4,

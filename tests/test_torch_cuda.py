@@ -737,3 +737,61 @@ def test_robust_serve_step_on_the_card_matches_the_cpu(card):
         assert float((got - ref).abs().max()) <= 1e-4 * float(
             ref.abs().max()), t
         token = torch.argmax(aggs["cpu"], dim=-1).to(torch.int32)[:, None]
+
+
+def test_two_gloo_ranks_share_the_card_through_k1(card):
+    """The sharded train step on a (1, 2) mesh of gloo ranks sharing the
+    card (reduced gemma3-1b, n = 7, f = 1, ``bulyan-krum`` over
+    ``fused``, which is ``pallas`` under the model axis): each rank
+    launches K1 exactly once per local leaf slice and step and nothing
+    else, the ranks agree, step 0's aggregate equals the single-device
+    ``xla`` backend's on the same submissions, and the parameters after
+    two steps equal the single-device run's (window ties let off)."""
+    import numpy as np
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.pytree import tree_leaves, tree_map
+    from repro_torch.data.synthetic import lm_batches
+    import torch_mesh_check as mesh_check
+    from torch_llm_compare import change_ratio, let_off
+    from repro_torch.dist.mesh import run_on_mesh
+    from repro_torch.dist.sharding import (gram_shardings, param_shardings,
+                                           per_worker_specs)
+    from repro_torch.models import init_model
+
+    cfg = get_reduced("gemma3_1b")
+    n, f, steps = 7, 1, 2
+    batches = []
+    for t in range(steps):
+        toks, labs = zip(*(lm_batches(cfg.vocab_size, 1, 64, t * n + w,
+                                      seed=7) for w in range(n)))
+        batches.append({"tokens": np.stack(toks),
+                        "labels": np.stack(labs)})
+    args = ("gemma3_1b", None, n, f, batches, steps, 1e-2, 0, None)
+    single = run_on_mesh(mesh_check.single_rank, (1, 1), args=args,
+                         device="cuda", backend="gloo", timeout=600)[0]
+    res = run_on_mesh(mesh_check.llm_rank, (1, 2), args=args,
+                      device="cuda", backend="gloo", timeout=600)
+    params = init_model(0, cfg, device="cuda")
+    n_leaves = len(tree_leaves(params))
+    for r in res:
+        for counts in r["launches"]:
+            assert counts == {k: (n_leaves if k == "pairwise_gram_partial"
+                                  else 0) for k in _build.LAUNCHES}
+        assert r["losses"] == res[0]["losses"]
+        assert r["selected"] == single["selected"]
+        assert r["k1"]["rel_err"] <= 1e-4
+    assert res[0]["step0"]["agg_rel"] <= 1e-4
+    template = tree_map(lambda p: p.to("meta"), params)
+    grid = type("Grid", (), {"axis_names": ("data", "model"),
+                             "devices": np.empty((1, 2))})()
+    got = mesh_check.gather_slices([r["params"] for r in res],
+                                   param_shardings(template, grid))
+    ties = let_off(mesh_check.whole_windows(
+        [r["windows"] for r in res],
+        per_worker_specs(gram_shardings(template, grid))),
+        single["windows"])
+    for g, w, p, tie in zip(got, single["after"], tree_leaves(params),
+                            ties):
+        assert change_ratio(g.cuda(), w.cuda(), p, steps,
+                            tie.cuda()) <= 1.0

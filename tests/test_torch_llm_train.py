@@ -23,7 +23,7 @@ leaf's largest change later on; ROADMAP §3).
 Also: step 0's submissions and ``selected`` against the reference's
 ``inject_byzantine`` + ``distributed_aggregate``, the three distance
 backends against each other, ``worker_chunk`` against one ``vmap`` pass,
-and ``mesh=``'s error.
+and ``mesh=`` without a template.
 """
 import functools
 
@@ -319,10 +319,14 @@ def test_init_agg_state_and_stateless_signature():
 
 
 def test_mesh_is_item_6():
+    """ROADMAP item 6 is the mesh path (``tests/test_torch_sharded.py``);
+    a mesh without the global parameter template says what it needs."""
+    from repro_torch.dist.mesh import make_host_mesh
     spec = ttrain.DistByzantineSpec(f=F, gar="bulyan-krum")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    with pytest.raises(ValueError, match="mesh= needs template="):
         ttrain.make_train_step(get_reduced("llama3_2_3b"), spec,
-                               get_optimizer("sgd", 0.1), mesh=object())
+                               get_optimizer("sgd", 0.1),
+                               mesh=make_host_mesh(device="cpu"))
 
 
 @pytest.mark.parametrize("vocab,batch,seq,step,seed", [

@@ -16,7 +16,7 @@ largest entry of what is compared.
   engine, a poisoned replica and a decode-time logits attack are
   rejected, ``AggState`` is carried across tokens, positions stay int32,
   telemetry off equals on bit for bit;
-* ``mesh=`` raises, naming ROADMAP item 6.
+* ``mesh=`` raises, naming ROADMAP item 9 (the sharded serving paths).
 """
 import dataclasses
 
@@ -378,9 +378,9 @@ def test_mesh_is_not_ported():
     for build in (tsr.make_robust_serve_step, tsr.make_robust_verify_step,
                   lambda c, s, mesh: tsr.make_robust_prefill_step(
                       c, s, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
             build(tcfg, spec, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         tsr.aggregate_logits(torch.zeros(5, 2, 3), 1, "krum", mesh=object())
 
 

@@ -410,9 +410,20 @@ class TestErrors:
             check_quorum(gar, n, f, distributed=distributed)
 
     def test_mesh_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-            robust.distributed_aggregate(_to_torch(_tree(MULTI)), F, "krum",
-                                         mesh=object())
+        """The mesh path is ported (ROADMAP item 6; the multi-rank cases
+        are ``tests/test_torch_sharded.py``): a one-position mesh runs the
+        single-device aggregation bit for bit."""
+        from repro_torch.dist.mesh import make_host_mesh
+        tree = _to_torch(_tree(MULTI))
+        for backend in ("xla", "pallas", "fused"):
+            got, gres = robust.distributed_aggregate(
+                tree, F, "bulyan-krum", distance_backend=backend,
+                mesh=make_host_mesh(device="cpu"))
+            want, wres = robust.distributed_aggregate(
+                tree, F, "bulyan-krum", distance_backend=backend)
+            assert torch.equal(gres.selected, wres.selected)
+            for a, b in zip(tree_leaves(got), tree_leaves(want)):
+                assert torch.equal(a, b)
 
     def test_spec_fields(self):
         s, j = AggSpec(f=2), JaxSpec(f=2)
