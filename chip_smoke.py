@@ -165,7 +165,44 @@ Phases, in order; any failure exits nonzero before the last line:
    position's aggregated maximum; accept mean and agreement with the
    per-token stream printed.  (9c) every family's ``reduced()`` config:
    the robust prefill step and 4 robust decode steps, exact launches per
-   call, finite aggregates.
+   call, finite aggregates.  (9d) sharded serving, ``ServingEngine(mesh=)``
+   on gloo ranks sharing the card (``run_on_mesh(..., backend="gloo")``;
+   the rank functions are ``tests/torch_serve_mesh_check.py``'s): 9a's
+   gemma3-1b cut and requests, an ensemble of 8 (jitter 1e-3 from a CUDA
+   generator seeded in each process, the last replica ``signflip`` x 10)
+   on a (2, 1) mesh, 4 replicas per rank, the logits all-gathered over
+   ``data``.  Around every admission and decode step each rank's
+   launches must read one K5 (K1 1, select 1, K4 1; K2 / K3 0) and the
+   poisoned replica's weight 0; the first decode step's gathered (8, 4,
+   262,144) stack must match a single-device 8-replica run's (its own
+   process) at 1e-4 of its largest entry, and each rank's aggregate and
+   selection must equal ``aggregate_logits`` on one device on that stack
+   bit for bit (scores at 1e-4); the ranks' streams must equal each other
+   and the single-device run's by the serving tests' rule
+   (``tests/torch_serving_compare.py``: a parting only after a near-tie
+   of the aggregate's two largest logits in either run, printed).  Then
+   the same two ranks as a (1, 2) mesh, the ``model`` axis at full width:
+   8 whole replicas per rank, ``fused`` becomes ``pallas``, exactly one K1
+   per aggregation per rank on its (8, 524,288) vocabulary slice and
+   nothing else, the same gates against the same single-device run (the
+   one-device aggregate under ``pallas``).  Readings: ms per decode step
+   and rank, the collectives' ms and bytes, tokens/s (the probe's own
+   capture forward left out), peak memory per rank, K5 on a rank's (8,
+   1,048,576) stack and K1 on its (8, 524,288) slice against their plain
+   versions (and K1 beside ``torch.mm``), timed with the card to itself.
+   (9e) the ``model`` axis with verify and telemetry: reduced llama3.2-3b,
+   8 replicas on a (2, 2) mesh (``fused`` becomes ``pallas``), per token,
+   with ``speculative_k = 4`` (draft replica 0) and with
+   ``telemetry=True``: exactly one K1 per aggregation per rank on its
+   vocabulary slice and nothing else, the first decode step's aggregate
+   held to one device's on its gathered stack as in 9d, streams equal
+   across ranks and to the single-device engine's, telemetry on == off,
+   each telemetry row equal bit for bit to what one device records from
+   the step's gathered stack and aggregate, and against the
+   single-device run's rows: where a row selects the same replicas,
+   every field at 1e-4 of its largest entry (``trimmed_frac`` off by no
+   more coordinates than lie near a trimmed bound on either stack),
+   elsewhere a selection fp32 rounding can pick on one of the stacks.
 10. The multi-rank runtime (``repro_torch.dist.mesh`` /
    ``dist.sharding`` and the ``mesh=`` step), gloo ranks sharing the card
    (``run_on_mesh(..., backend="gloo")``; the rank functions are
@@ -198,7 +235,8 @@ Phases, in order; any failure exits nonzero before the last line:
    exactly K1 11 per step and rank.
 11. One JSON line of per-kernel measurements (phase 8's K1, selection and
    K4 on the embedding leaf, phase 9a's K1, selection, K4 and K5 on the
-   serving stack and phase 10a's K1 on a rank's embedding slice added),
+   serving stack, 9d's K5 on a rank's gathered stack and K1 on a rank's
+   vocabulary slice, and phase 10a's K1 on a rank's embedding slice added),
    then the result line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2610,6 +2648,321 @@ def phase_serve_reduced(torch, np, rt):
 
 
 # ---------------------------------------------------------------------------
+# phases 9d / 9e: sharded serving (gloo ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+#: 9d: 8a's gemma3-1b cut, 8 replicas, on a (2, 1) mesh (4 per rank) and
+#: then a (1, 2) mesh of the same two ranks (8 whole replicas per rank,
+#: the vocabulary split); 9e: reduced llama3.2-3b, 8 replicas on (2, 2)
+SHARD_SERVE_N, SHARD_SERVE_FULL, SHARD_SERVE_MODEL, SHARD_SERVE_REDUCED = (
+    8, (2, 1), (1, 2), (2, 2))
+#: the K1-only launches of one aggregation under a model axis
+K1_CALL = {"pairwise_gram_partial": 1}
+
+
+def shard_serve_settings(np, rt):
+    """9d's and 9e's ``torch_serve_mesh_check.serve_rank`` settings."""
+    import dataclasses
+    full = dataclasses.replace(rt["get_config"](LLM_ARCH),
+                               n_layers=LLM_LAYERS)
+    reduced = rt["get_reduced"](MESH_ARCH)
+    d = dict(arch=LLM_ARCH, layers=LLM_LAYERS, n=SHARD_SERVE_N, f=SERVE_F,
+             seed=0, reqs=serve_requests(np, full.vocab_size, 6, 9,
+                                         (32, 256), (16, 32)),
+             slots=SERVE_SLOTS, cache_len=SERVE_CACHE, runs=("token",))
+    e = dict(arch=MESH_ARCH, layers=None, n=SHARD_SERVE_N, f=SERVE_F,
+             seed=1, reqs=serve_requests(np, reduced.vocab_size, 6, 11,
+                                         (8, 24), (8, 12)),
+             slots=SERVE_SLOTS, cache_len=64,
+             runs=("token", "spec", "telemetry"))
+    return d, e
+
+
+def hold_streams(rt, got: dict, want: dict, what: str) -> int:
+    """``got``'s streams against ``want``'s token for token by the
+    serving tests' rule (``torch_serving_compare``), a parting let off
+    after a near-tie in either run and printed; returns their count."""
+    return rt["serving_compare"].assert_streams_match(
+        want["streams"], got["streams"], (got["gaps"], want["gaps"]),
+        log=lambda line: print(f"  {what}: {line}", flush=True))
+
+
+def hold_first_step(run: dict, single: dict, what: str) -> float:
+    """A sharded run's first decode step: the gathered stack at 1e-4 of
+    its largest entry off the single-device run's, and ``aggregate_logits``
+    on one device on that stack (under the backend the mesh resolves)
+    giving the step's selection and aggregate bit for bit and its scores
+    at 1e-4.  Returns the stack's relative error."""
+    _, rel, _ = scaled_err(run["stack"], single["stack"])
+    expect(rel <= FP32_TOL, f"{what}: the gathered stack is {rel:.3e} of "
+           f"its largest entry off one device's")
+    expect(run["on_stack"], f"{what}: the step's aggregate or selection "
+           f"differs from aggregate_logits on one device on the same stack")
+    expect(run["on_stack_scores"] <= FP32_TOL, f"{what}: the step's scores "
+           f"are {run['on_stack_scores']:.3e} of their largest off one "
+           f"device's on the same stack")
+    return rel
+
+
+def check_serve_calls(run: dict, per_call: dict, what: str,
+                      k: int = 1) -> None:
+    """Each admission and decode step launches ``per_call``, each verify
+    block ``k`` times that; the poisoned replica has weight 0 in every
+    aggregation; the run's counters (from 0) are the calls' sum."""
+    total = {name: 0 for name in REPLACES}
+    for kind, calls in run["calls"].items():
+        want = per_step(per_call, k if kind == "verify" else 1)
+        for i, c in enumerate(calls):
+            expect_launches(c["launches"], want, f"{what} {kind} {i}")
+            expect(c["byz"] == 0.0, f"{what} {kind} {i}: the poisoned "
+                   f"replica has selection weight {c['byz']}")
+            for name in total:
+                total[name] += c["launches"][name]
+    expect_launches(run["launches"], total, f"{what} run")
+
+
+def print_serve_times(r: dict, run: dict, n_tok: int, what: str,
+                      smi: str) -> None:
+    """A rank's ms per decode step and admission, collectives, tokens/s
+    (the probe's own host time left out) and memory."""
+    dec = [c["ms"] for c in run["calls"]["decode"]]
+    adm = [c["ms"] for c in run["calls"]["admit"]]
+    cs = [c["comm_s"] * 1e3 for c in run["calls"]["decode"]]
+    cb = [c["comm_bytes"] for c in run["calls"]["decode"]]
+    print(f"  {what} rank {r['coords']}: ms per decode step median "
+          f"{statistics.median(dec):.2f} (min {min(dec):.2f}, max "
+          f"{max(dec):.2f}), of it in collectives median "
+          f"{statistics.median(cs):.2f} ms for "
+          f"{statistics.median(cb):,.0f} bytes of results; ms per "
+          f"admission median {statistics.median(adm):.2f}; {n_tok} tokens "
+          f"in {run['wall_s']:.2f} s = {n_tok / run['wall_s']:.1f} "
+          f"tokens/s; {r['resident_gib']:.1f} GiB resident after the "
+          f"build, peak {run['peak_gib']:.1f} GiB in the run; built in "
+          f"{r['build_s']:.1f} s ({smi})", flush=True)
+
+
+def hold_telemetry(np, torch, rt, mine: dict, other: dict, what: str):
+    """A sharded run's telemetry rows against the single-device run's,
+    row by row: where a row selects the replicas one device selected,
+    every field at 1e-4 of its largest entry, and ``trimmed_frac`` off by
+    no more window coordinates than have two values next to a trimmed
+    range's bound within twice the two runs' largest difference in the
+    window, on either run's stack; elsewhere the selection must be one
+    that fp32 rounding can pick on one of the two stacks.  Returns
+    ``(rows whose selection differs, the largest relative error, the
+    coordinates let off)``."""
+    got, want = mine["telemetry"]["records"], other["telemetry"]["records"]
+    expect(len(got) == len(want) == mine["sketch"]["rows"],
+           f"{what}: {len(got)} telemetry rows, one device {len(want)}")
+    sk, ot = mine["sketch"], other["sketch"]
+    ties = rt["serve_mesh_check"].trim_ties
+    flips, worst, let_off = [], 0.0, 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g["selected"], w["selected"]):
+            expect(ot["selected"][i] in sk["reachable"][i]
+                   or sk["selected"][i] in ot["reachable"][i],
+                   f"{what} telemetry row {i}: selection "
+                   f"{sk['selected'][i]} vs one device's "
+                   f"{ot['selected'][i]}, which rounding cannot explain "
+                   f"(reachable {sk['reachable'][i]})")
+            flips.append(i)
+            continue
+        for key in w:
+            if key == "trimmed_frac":
+                a, b = sk["windows"][i], ot["windows"][i]
+                near = 2 * float((a.double() - b.double()).abs().max())
+                moved = float(np.abs(g[key] - w[key]).max()) * a.shape[1]
+                slack = ties(a, SERVE_F, near) + ties(b, SERVE_F, near)
+                expect(moved <= slack + 0.5, f"{what} telemetry row {i}: "
+                       f"trimmed_frac moved by {moved:.1f} coordinates, "
+                       f"{slack} lie within {near:.3e} of a trimmed bound")
+                let_off += round(moved)
+                continue
+            _, rel, _ = scaled_err(torch.as_tensor(g[key]),
+                                   torch.as_tensor(w[key]))
+            expect(rel <= FP32_TOL, f"{what} telemetry row {i}: {key} "
+                   f"{rel:.3e} of its largest entry off one device's")
+            worst = max(worst, rel)
+    return flips, worst, let_off
+
+
+def phase_shard_serve(torch, np, rt, smi):
+    """9d and 9e: ``ServingEngine(mesh=)`` on gloo ranks sharing the card
+    (``tests/torch_serve_mesh_check.py``'s rank functions), against the
+    single-device engine on the same ensemble in a process of its own."""
+    sm = rt["serve_mesh_check"]
+    set_d, set_e = shard_serve_settings(np, rt)
+    torch.cuda.empty_cache()
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    print(f"  9d this process holds "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB of the card",
+          flush=True)
+    t0 = time.perf_counter()
+    single_d, single_e = rt["run_on_mesh"](
+        sm.serve_settings, (1, 1), args=([dict(set_d, single=True),
+                                          dict(set_e, single=True)],),
+        device="cuda", backend="gloo", timeout=600)[0]
+    t_single = time.perf_counter() - t0
+
+    # 9d: gemma3-1b at full width, on a (2, 1) mesh (K5 on every rank's
+    # gathered stack), then a (1, 2) mesh of the same ranks (K1 on every
+    # rank's vocabulary slice)
+    t0 = time.perf_counter()
+    res, res_m = zip(*rt["run_on_mesh"](
+        sm.serve_settings, SHARD_SERVE_FULL,
+        args=([dict(set_d, time_k5=True),
+               dict(set_d, shape=SHARD_SERVE_MODEL, time_k1=True)],),
+        device="cuda", backend="gloo", timeout=600))
+    t_d = time.perf_counter() - t0
+    n_tok = sum(m for _, _, m in set_d["reqs"])
+    sd = single_d["token"]
+    for r in res:
+        what = f"9d rank {r['coords']}"
+        run = r["token"]
+        check_serve_calls(run, K5_CALL, what)
+        expect(r["n_local"] == SHARD_SERVE_N // SHARD_SERVE_FULL[0],
+               f"{what} holds {r['n_local']} replicas")
+        rel = hold_first_step(run, sd, what)
+        expect(run["streams"] == res[0]["token"]["streams"],
+               f"{what}: streams differ from rank 0's")
+    parted = hold_streams(rt, res[0]["token"], sd, "9d")
+    run0 = res[0]["token"]
+    print(f"  ok  9d {LLM_ARCH} x {LLM_LAYERS} layers, {SHARD_SERVE_N} "
+          f"replicas on a {SHARD_SERVE_FULL} mesh ({res[0]['n_local']} per "
+          f"rank): {len(run0['calls']['decode'])} decode steps and "
+          f"{len(run0['calls']['admit'])} admissions per rank, each exactly "
+          f"K1 1, select 1, K4 1 (one K5), K2 / K3 0; the poisoned replica "
+          f"never selected; the first decode step's gathered "
+          f"{tuple(run0['stack'].shape)} stack {rel:.2e} of its largest "
+          f"entry off the single-device run's, and each rank's aggregate "
+          f"and selection equal bit for bit to aggregate_logits on one "
+          f"device on it; streams equal across ranks, {parted} parting(s) "
+          f"from the single-device run", flush=True)
+    for r in res:
+        print_serve_times(r, r["token"], n_tok, "9d", smi)
+    dec1 = [c["ms"] for c in sd["calls"]["decode"]]
+    print(f"  9d single-device run (8 replicas, the card alone): ms per "
+          f"decode step median {statistics.median(dec1):.2f}; {n_tok} "
+          f"tokens in {sd['wall_s']:.2f} s = {n_tok / sd['wall_s']:.1f} "
+          f"tokens/s; {single_d['resident_gib']:.1f} GiB resident, peak "
+          f"{sd['peak_gib']:.1f} GiB in the run", flush=True)
+    k5 = res[0]["k5"]
+    n, d = k5["shape"]
+    row = dict(ms=k5["ms"], plain_ms=k5["plain_ms"], library_ms=None,
+               max_abs_err=k5["max_abs_err"],
+               **bound(n, d, SERVE_F, "fused_aggregate", 4))
+    for r in res:
+        k = r["k5"]
+        print(f"  ok  9d rank {r['coords']}: K5 on its {k['shape']} stack "
+              f"{k['rel_err']:.2e} of the largest entry off its plain "
+              f"version; {k['ms']:.4f} ms (CUDA events, the card alone), "
+              f"plain {k['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']})", flush=True)
+    out = {"k5_row": row, "k5_launches": run0["launches"]}
+
+    # 9d, the model axis at full width: one K1 per aggregation per rank
+    for r in res_m:
+        what = f"9d model axis rank {r['coords']}"
+        run = r["token"]
+        check_serve_calls(run, K1_CALL, what)
+        expect(r["n_local"] == SHARD_SERVE_N,
+               f"{what} holds {r['n_local']} replicas")
+        rel = hold_first_step(run, sd, what)
+        expect(run["streams"] == res_m[0]["token"]["streams"],
+               f"{what}: streams differ from rank 0's")
+    parted = hold_streams(rt, res_m[0]["token"], sd, "9d model axis")
+    k1 = res_m[0]["k1"]
+    n, d = k1["shape"]
+    row1 = dict(ms=k1["ms"], plain_ms=k1["plain_ms"],
+                library_ms=k1["library_ms"], max_abs_err=k1["max_abs_err"],
+                **bound(n, d, SERVE_F, K1_ONLY, 4))
+    print(f"  ok  9d model axis: {SHARD_SERVE_N} whole replicas per rank on "
+          f"a {SHARD_SERVE_MODEL} mesh of the same ranks, exactly one K1 "
+          f"per aggregation per rank on its vocabulary slice {k1['shape']} "
+          f"and no select / K4 / K5 / K2 / K3; the poisoned replica never "
+          f"selected; the first decode step's stack {rel:.2e} of its "
+          f"largest entry off the single-device run's, each rank's "
+          f"aggregate and selection equal bit for bit to aggregate_logits "
+          f"on one device (pallas) on it; streams equal across ranks, "
+          f"{parted} parting(s) from the single-device run", flush=True)
+    for r in res_m:
+        print_serve_times(r, r["token"], n_tok, "9d model axis", smi)
+        k = r["k1"]
+        print(f"  ok  9d model axis rank {r['coords']}: K1 on its "
+              f"{k['shape']} slice {k['rel_err']:.2e} of the largest entry "
+              f"off its plain version; {k['ms']:.4f} ms (CUDA events, the "
+              f"card alone), plain {k['plain_ms']:.4f} ms, torch.mm "
+              f"{k['library_ms']:.4f} ms, bound {row1['bound_ms']:.5f} ms "
+              f"({row1['bound_by']})", flush=True)
+    print(f"  9d took {t_d:.1f} s (the single-device runs of 9d and 9e "
+          f"{t_single:.1f} s)", flush=True)
+    out.update(k1_row=row1, k1_launches=res_m[0]["token"]["launches"][
+        K1_ONLY])
+
+    # 9e: the model axis on a (2, 2) mesh, verify, telemetry (F4)
+    t0 = time.perf_counter()
+    res = rt["run_on_mesh"](sm.serve_rank, SHARD_SERVE_REDUCED,
+                            args=(set_e,), device="cuda", backend="gloo",
+                            timeout=600)
+    t_e = time.perf_counter() - t0
+    for r in res:
+        what = f"9e rank {r['coords']}"
+        for name in set_e["runs"]:
+            run = r[name]
+            check_serve_calls(run, K1_CALL, f"{what} {name}",
+                              k=sm.RUNS["spec"]["speculative_k"])
+            expect(run["streams"] == res[0][name]["streams"],
+                   f"{what} {name}: streams differ from rank 0's")
+        hold_first_step(r["token"], single_e["token"], what)
+        expect(r["telemetry"]["streams"] == r["token"]["streams"],
+               f"{what}: telemetry=True changed the streams")
+        tel = r["telemetry"]["telemetry"]
+        expect(tel["pushed"] == single_e["telemetry"]["telemetry"][
+            "pushed"] > 0, f"{what}: {tel['pushed']} telemetry rows")
+        # F4 on the card: each row is what one device records from the
+        # step's gathered stack and aggregate, bit for bit
+        sk = r["telemetry"]["sketch"]
+        expect(sk["rows"] == tel["pushed"] and sk["differ"] == 0,
+               f"{what}: {sk['differ']} of {sk['rows']} telemetry rows "
+               f"differ from tree_diagnostics on one device")
+    parts = {name: hold_streams(rt, res[0][name], single_e[name],
+                                f"9e {name}")
+             for name in set_e["runs"]}
+    parted = sum(parts.values())
+    rows = res[0]["telemetry"]["sketch"]["rows"]
+    if parts["telemetry"]:
+        versus = "not compared row by row with one device's: a stream parted"
+    else:
+        flips, worst, let_off = hold_telemetry(
+            np, torch, rt, res[0]["telemetry"], single_e["telemetry"], "9e")
+        versus = (f"against the single-device run's, the {rows - len(flips)}"
+                  f" rows with its selection within {worst:.2e} of each "
+                  f"field's largest entry, trimmed_frac moved by {let_off} "
+                  f"coordinate(s) in all, each near a trimmed bound; "
+                  f"{len(flips)} rows selecting another set that fp32 "
+                  f"rounding can pick")
+    print(f"  ok  9e telemetry: every rank's {rows} rows equal "
+          f"tree_diagnostics on one device from the step's gathered stack "
+          f"bit for bit; {versus}", flush=True)
+    verify = [c["ms"] for c in res[0]["spec"]["calls"]["verify"]]
+    decode = [c["ms"] for c in res[0]["token"]["calls"]["decode"]]
+    print(f"  ok  9e {MESH_ARCH} reduced, {SHARD_SERVE_N} replicas on a "
+          f"{SHARD_SERVE_REDUCED} mesh: per token, speculative k = "
+          f"{sm.RUNS['spec']['speculative_k']} (draft replica 0) and with "
+          f"telemetry, exactly one K1 per aggregation per rank on its "
+          f"vocabulary slice and no select / K4 / K5 / K2 / K3; the first "
+          f"decode step's aggregate and selection equal bit for bit to "
+          f"aggregate_logits on one device (pallas) on its gathered "
+          f"stack; streams equal across ranks and to the single-device "
+          f"engine's ({parted} parting(s)); telemetry on == off; ms per "
+          f"decode step median {statistics.median(decode):.2f}, per "
+          f"verify block {statistics.median(verify):.2f}; {t_e:.1f} s "
+          f"({smi})", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the multi-rank runtime (gloo ranks sharing the card)
 # ---------------------------------------------------------------------------
 
@@ -2949,6 +3302,8 @@ def main() -> int:
     from repro_torch.dist import async_train, sharding
     import torch_llm_compare as compare
     import torch_mesh_check as mesh_check
+    import torch_serve_mesh_check as serve_mesh_check
+    import torch_serving_compare as serving_compare
     from repro_torch.dist.mesh import run_on_mesh
     rt = dict(simple=simple, trainer=trainer, fused_agg=fused_agg,
               build=_build, AggSpec=AggSpec, unflatten=unflatten,
@@ -2979,7 +3334,8 @@ def main() -> int:
               ServingEngine=ServingEngine, Request=Request,
               decode_step=decode_step, verify_supported=verify_supported,
               tree_map=tree_map, mesh_check=mesh_check, compare=compare,
-              run_on_mesh=run_on_mesh,
+              serve_mesh_check=serve_mesh_check,
+              serving_compare=serving_compare, run_on_mesh=run_on_mesh,
               param_shardings=sharding.param_shardings,
               gram_shardings=sharding.gram_shardings,
               per_worker_specs=sharding.per_worker_specs,
@@ -3078,8 +3434,12 @@ def main() -> int:
     serve = phase_serve_full(torch, np, rt, ops, timer, smi)
     phase_serve_speculative(torch, np, rt, smi)
     phase_serve_reduced(torch, np, rt)
-    print(f"  phase 9 took {time.perf_counter() - t9:.1f} s ({smi})",
+    print(f"  phases 9a-9c took {time.perf_counter() - t9:.1f} s ({smi})",
           flush=True)
+    t9d = time.perf_counter()
+    shard_serve = phase_shard_serve(torch, np, rt, smi)
+    print(f"  phases 9d-9e took {time.perf_counter() - t9d:.1f} s; phase 9 "
+          f"{time.perf_counter() - t9:.1f} s ({smi})", flush=True)
 
     print("== phase 10: the multi-rank runtime (gloo ranks sharing the "
           "card)", flush=True)
@@ -3135,6 +3495,19 @@ def main() -> int:
         "launches": mesh["launches"], "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for name, tag, row, launches in (
+            ("fused_aggregate", "serve-mesh", shard_serve["k5_row"],
+             shard_serve["k5_launches"]["fused_aggregate"]),
+            (K1_ONLY, "serve-mesh-model", shard_serve["k1_row"],
+             shard_serve["k1_launches"])):
+        expect(launches > 0, f"{name} was not launched on the {tag} path")
+        kernels.append({
+            "name": f"{name}@{tag}", "route": "cuda",
+            "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches, "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     print(f"  the script took {time.perf_counter() - t_start:.1f} s "
           f"({smi})", flush=True)
     print(smi, flush=True)

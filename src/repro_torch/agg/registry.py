@@ -79,6 +79,13 @@ class TreeContext:
       reduce: maps per-leaf partial reductions over coordinates to their
         total over the whole coordinate space (``None``: their sum in
         leaf order; under a mesh the engine all-reduces the slices').
+      sketch: under a mesh's ``model`` axis, ``(leaves, agg_leaves) ->
+        (numels, windows)``: each whole leaf's per-worker coordinate
+        count and the fp32 ``(n + 1, size)`` values (the workers' rows,
+        then the aggregate's) of its telemetry window
+        (``repro_torch.obs.forensics.sketch_spans``), gathered from the
+        ranks' slices, the same on every rank (``None``: the leaves are
+        whole).
     """
 
     leaves: Tuple[torch.Tensor, ...]
@@ -88,6 +95,7 @@ class TreeContext:
     make_dists: Callable[[Sequence[torch.Tensor]], torch.Tensor]
     coordinate_phase: Callable[[torch.Tensor, int], torch.Tensor]
     reduce: Optional[Callable[[Sequence[torch.Tensor]], torch.Tensor]] = None
+    sketch: Optional[Callable] = None
 
     def dists(self) -> torch.Tensor:
         """``(n, n)`` squared distances over the concatenated coordinate

@@ -50,19 +50,21 @@ def tree_unflatten(tree: Any, leaves: List[torch.Tensor]) -> Any:
       A tree of the same structure: dicts keep ``tree``'s key order,
       lists / tuples their type.
     """
-    it = iter(leaves)
+    return _rebuild(tree, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            by_key = {k: build(t[k]) for k in sorted(t)}
-            return {k: by_key[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            items = [build(x) for x in t]
-            return type(t)(*items) if hasattr(t, "_fields") else type(t)(
-                items)
-        return next(it)
 
-    return build(tree)
+def _rebuild(t: Any, it) -> Any:
+    """:func:`tree_unflatten`'s walk, a module function: a recursive
+    closure would hold itself, and with it the iterator over
+    ``leaves``, in a reference cycle, keeping every leaf alive until
+    Python's cycle collector runs."""
+    if isinstance(t, dict):
+        by_key = {k: _rebuild(t[k], it) for k in sorted(t)}
+        return {k: by_key[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        items = [_rebuild(x, it) for x in t]
+        return type(t)(*items) if hasattr(t, "_fields") else type(t)(items)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

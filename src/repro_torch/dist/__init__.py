@@ -17,8 +17,9 @@
   serve.py        prefill and decode steps
   serve_robust.py the Byzantine-resilient ensemble (replica stacks,
                   poisoning, robust logits aggregation, the prefill /
-                  decode / speculative-verify steps); its ``mesh=``
-                  forms are ROADMAP item 9
+                  decode / speculative-verify steps), on one device or
+                  with ``mesh=`` (replicas on ``data``, the vocabulary
+                  of the logits stack on ``model``)
 """
 from repro_torch.dist.mesh import (make_host_mesh, make_production_mesh,
                                    mesh_axis_sizes, run_on_mesh)

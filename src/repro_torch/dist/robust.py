@@ -49,8 +49,11 @@ the ``(n, n)`` partials of the sharded leaves are all-reduced over
 ``pallas``, as in the reference.  The selection is then the same on
 every rank, the coordinate phases run on the local slices, and every
 reduction over coordinates (the attacks' ``delta_bar``, norms, the
-reputation scores) is all-reduced the same way.  A replicated leaf must
-be the same on every rank of the ``model`` axis.
+reputation scores) is all-reduced the same way.  The ``obs-`` telemetry
+sketch gathers its few hundred window coordinates of each leaf over
+``model`` (``_Shards.sketch``), so every rank records what one device
+records.  A replicated leaf must be the same on every rank of the
+``model`` axis.
 """
 from __future__ import annotations
 
@@ -179,6 +182,65 @@ class _Shards(NamedTuple):
         if self.dims[k] is not None:
             shape[self.dims[k] - 1] *= self.factor(k)
         return tuple(shape)
+
+    def sketch(self, leaves, agg_leaves):
+        """``TreeContext.sketch``: the telemetry windows of the whole
+        leaves from this rank's slices.
+
+        Each rank reads the window coordinates its slice holds (global
+        flat indices mapped through the split dimension), one
+        ``all_gather`` over ``model`` brings every rank's reads, and each
+        coordinate is taken from the rank that holds it: at most
+        ``OBS_SKETCH * (n + 1)`` values per rank, and the values one
+        device reads, bit for bit.
+
+        Returns:
+          ``(numels, windows)``: each whole leaf's per-worker coordinate
+          count and its fp32 ``(n + 1, size)`` window (the workers' rows,
+          then the aggregate's).
+        """
+        from repro_torch.obs.forensics import sketch_spans
+        numels = [math.prod(self.global_shape(k, l))
+                  for k, l in enumerate(leaves)]
+        me = self.mesh.index("model")
+        windows, reads, owners = [], [], []
+        for k, ((start, size), leaf, agg) in enumerate(zip(
+                sketch_spans(numels), leaves, agg_leaves)):
+            n = leaf.shape[0]
+            if self.dims[k] is None:
+                windows.append(torch.cat([
+                    leaf.reshape(n, -1)[:, start:start + size]
+                    .to(torch.float32),
+                    agg.reshape(1, -1)[:, start:start + size]
+                    .to(torch.float32)]))
+                continue
+            idx = list(np.unravel_index(np.arange(start, start + size),
+                                        self.global_shape(k, leaf)))
+            dim, width = self.dims[k] - 1, leaf.shape[self.dims[k]]
+            owner = idx[dim] // width
+            # a coordinate another rank holds reads index 0 here; the
+            # gather below takes it from its owner
+            idx[dim] = np.where(owner == me, idx[dim] % width, 0)
+            at = tuple(torch.as_tensor(i, device=leaf.device) for i in idx)
+            reads.append(torch.cat([
+                leaf[(slice(None),) + at].to(torch.float32),
+                agg[at].to(torch.float32)[None]]))
+            owners.append(owner)
+            windows.append(None)
+        if reads:
+            every = self.mesh.all_gather(torch.cat(reads, dim=1)[None],
+                                         "model", 0)
+            col = 0
+            for k, owner in zip([k for k, w in enumerate(windows)
+                                 if w is None], owners):
+                size = owner.size
+                at = torch.arange(col, col + size, device=every.device)
+                # contiguous rows, as one device's windows
+                windows[k] = every[torch.as_tensor(owner,
+                                                   device=every.device),
+                                   :, at].T.contiguous()
+                col += size
+        return numels, windows
 
 
 def _shards(mesh, specs, n_leaves: int) -> Optional[_Shards]:
@@ -329,8 +391,8 @@ def distributed_aggregate(tree: Any, f: int, gar: str = "bulyan-krum", *,
       gar: any rule with a tree implementation: the registered rules,
         ``bulyan-krum``, ``bulyan-geomed``, ``fused-<base>`` and the
         stateful ``buffered-<base>``, ``centered_clip_momentum``,
-        ``stale[-inv|-exp]-<base>``, ``reputation-<base>`` and (without
-        a ``model`` axis) ``obs-<base>``.
+        ``stale[-inv|-exp]-<base>``, ``reputation-<base>`` and
+        ``obs-<base>``.
       agg_dtype: ``"native"`` (fp32) | ``"float32"`` | ``"bfloat16"``.
       window: coordinate-phase window of the bulyan rules (see
         :func:`coordinate_phase_nd`).
@@ -374,10 +436,6 @@ def distributed_aggregate(tree: Any, f: int, gar: str = "bulyan-krum", *,
         if lowered is not None:
             rule = resolve_rule(lowered, **params)
     shards = _shards(mesh, specs, len(leaves))
-    if shards is not None and "obs" in rule.state_fields:
-        raise ValueError(
-            f"{gar!r}: the obs- telemetry sketch reads whole leaves; under "
-            f"a mesh with a 'model' axis run the rule without telemetry")
     cdt = _compute_dtype(agg_dtype)
 
     def make_dists(ls):
@@ -388,7 +446,8 @@ def distributed_aggregate(tree: Any, f: int, gar: str = "bulyan-krum", *,
     ctx = TreeContext(
         leaves=tuple(leaves), n=n, f=f, cdt=cdt, make_dists=make_dists,
         coordinate_phase=partial(coordinate_phase_nd, window=window),
-        reduce=None if shards is None else shards.total)
+        reduce=None if shards is None else shards.total,
+        sketch=None if shards is None else shards.sketch)
     if rule.stateful:
         if state is None:
             state = init_state(rule, tree, flat=False)

@@ -23,9 +23,24 @@ module is the serving side of ``repro_torch.dist.robust``:
   stateful rules carry an ``AggState`` across tokens.
 
 The continuous-batching engine is ``repro_torch.serving.engine``
-(``ServingEngine(..., ensemble=spec)``).  The sharded forms (``mesh=``:
-replica stacks on ``data`` by ``ensemble_param_shardings``) are ROADMAP
-item 9 and raise.
+(``ServingEngine(..., ensemble=spec)``).
+
+With ``mesh=`` (a ``repro_torch.dist.mesh.Mesh``; explicit SPMD, every
+rank runs the same steps on the same requests) the replicas split over
+``data`` as ``ensemble_param_shardings`` places them (every replica on
+every rank when ``data`` does not divide the ensemble).  A rank's steps
+take its own replicas and their caches (``sharding.local_replicas``),
+each replica whole along ``model``: the port has no tensor-parallel
+forward, so a rank holds ``n / data`` full parameter sets.  The rank's
+``(n / data, B, V)`` logits are all-gathered over ``data`` in replica
+order, the attack runs on that whole stack, and the aggregation splits
+the vocabulary over ``model`` (``sharding.logits_pspec``): each rank
+aggregates its slice through ``distributed_aggregate(mesh=, specs=)``
+(K1 per slice with the ``(n, n)`` partials all-reduced; ``fused``
+becomes ``pallas`` there, as in the reference) and the aggregate is
+gathered back to the ``(B, V)`` logits every rank samples from.  With
+``model = 1`` ``fused`` stays fused: K5 on the gathered stack on every
+rank.
 """
 from __future__ import annotations
 
@@ -37,8 +52,12 @@ from repro_torch.agg.specs import AggSpec
 from repro_torch.agg.state import AggState, init_state
 from repro_torch.core.pytree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.device import resolve_device
+from repro_torch.dist.mesh import mesh_axis_sizes
 from repro_torch.dist.robust import (distributed_aggregate, inject_byzantine,
                                      resolve_distance_backend)
+from repro_torch.dist.sharding import (P, gather_replicas, gather_shard,
+                                       local_shape, local_shard,
+                                       logits_pspec)
 from repro_torch.dist.train import _RANDOM_ATTACKS, _attack_generator
 from repro_torch.models import decode_step, prefill, verify_step
 from repro_torch.models.config import ModelConfig
@@ -152,14 +171,19 @@ def poison_replicas(stacked_params: Any, f: int, attack: str = "signflip",
 # logits aggregation (the one entry point every serving path shares)
 # ---------------------------------------------------------------------------
 
-def _serving_backend(distance_backend: str, mesh) -> str:
-    """The resolved backend of a serving path, which runs on one device:
-    ``mesh=`` raises until the sharded serving paths are ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= on the serving paths needs the sharded serving "
-            "runtime, which is not ported yet (ROADMAP item 9)")
-    return resolve_distance_backend(distance_backend)
+def _mesh_of(mesh):
+    """``mesh`` checked: ``None`` or a rank's ``Mesh`` (anything with
+    the axis names, the device grid and the collectives)."""
+    if mesh is not None and not all(hasattr(mesh, a) for a in (
+            "axis_names", "devices", "index", "all_gather")):
+        raise TypeError(f"mesh= takes a repro_torch.dist.mesh.Mesh (a "
+                        f"rank's view of its mesh), got "
+                        f"{type(mesh).__name__}")
+    return mesh
+
+
+def _split_model(mesh) -> bool:
+    return mesh is not None and mesh_axis_sizes(mesh).get("model", 1) > 1
 
 
 def aggregate_logits(logits: torch.Tensor, f: int, gar: str, *,
@@ -178,15 +202,23 @@ def aggregate_logits(logits: torch.Tensor, f: int, gar: str, *,
 
     Args:
       logits: ``(n_replicas, batch, vocab)`` (or ``(n_replicas, vocab)``)
-        logits of one decode position.
+        logits of one decode position; under a mesh the whole stack, the
+        same on every rank.
       f: Byzantine bound (quorum-checked).
       gar: any rule with a tree implementation.
       agg_dtype: accumulation dtype (see ``repro_torch.dist.robust``).
       distance_backend: ``"xla"`` | ``"pallas"`` | ``"fused"`` |
         ``"auto"``.
-      mesh: must be ``None`` (the sharded serving paths are ROADMAP item
-        9).
-      state: carried ``AggState`` of a stateful rule (``None``: zeros).
+      mesh: a rank's ``Mesh``, or ``None``.  With a ``model`` axis
+        larger than 1 the rank aggregates its vocabulary slice
+        (``sharding.logits_pspec``; the whole stack when the vocabulary
+        does not divide) through ``distributed_aggregate(mesh=, specs=)``
+        and the aggregate is gathered over ``model``; ``"fused"``
+        resolves to ``"pallas"`` there.  Without one, every rank
+        aggregates the whole stack.
+      state: carried ``AggState`` of a stateful rule (``None``: zeros);
+        under a ``model`` axis its buffers hold the rank's slice
+        (:func:`init_ensemble_state` with the mesh).
       history_window: ``buffered-*`` window (``None``: the default).
       rep_lr: ``reputation-*`` EMA rate (``None``: the default).
       rep_decay: ``reputation-*`` forgetting factor (``None``: the
@@ -194,21 +226,31 @@ def aggregate_logits(logits: torch.Tensor, f: int, gar: str, *,
 
     Returns:
       ``(aggregate, DistAggResult)``, plus the new state for a stateful
-      rule; the aggregate drops the replica axis and keeps the dtype.
+      rule; the aggregate drops the replica axis and keeps the dtype
+      (under a mesh, whole and the same on every rank).
     """
-    _serving_backend(distance_backend, mesh)
-    out = distributed_aggregate(
-        {"logits": logits}, f, gar, agg_dtype=agg_dtype,
-        distance_backend=distance_backend, state=state,
-        history_window=history_window, rep_lr=rep_lr, rep_decay=rep_decay)
-    agg = out[0]["logits"]
+    mesh = _mesh_of(mesh)
+    kw = dict(agg_dtype=agg_dtype, distance_backend=distance_backend,
+              state=state, history_window=history_window, rep_lr=rep_lr,
+              rep_decay=rep_decay)
+    if not _split_model(mesh):
+        out = distributed_aggregate({"logits": logits}, f, gar, mesh=mesh,
+                                    **kw)
+        agg = out[0]["logits"]
+    else:
+        spec = logits_pspec(tuple(logits.shape), mesh)
+        out = distributed_aggregate(
+            {"logits": local_shard(logits, spec, mesh)}, f, gar, mesh=mesh,
+            specs={"logits": spec}, **kw)
+        agg = gather_shard(out[0]["logits"], P(*spec[1:]), mesh)
     if len(out) == 3:
         return agg, out[1], out[2]
     return agg, out[1]
 
 
 def init_ensemble_state(spec: AggSpec, n_replicas: int, batch: int,
-                        vocab: int, device="cuda") -> Optional[AggState]:
+                        vocab: int, device="cuda",
+                        mesh=None) -> Optional[AggState]:
     """Zeroed ``AggState`` of a stateful serving aggregator.
 
     The template is the ``(n_replicas, batch, vocab)`` logits stack of a
@@ -222,6 +264,11 @@ def init_ensemble_state(spec: AggSpec, n_replicas: int, batch: int,
       batch: decode batch (the engine's slots).
       vocab: vocabulary size.
       device: where the buffers live (``"cuda"`` raises without a card).
+      mesh: a rank's ``Mesh``, or ``None``: under a ``model`` axis the
+        template is the rank's slice of the stack
+        (``sharding.logits_pspec``), so window buffers are ``(W,
+        n_replicas, batch, vocab / model)``; reputation stays ``(n,
+        batch)``, the same on every rank.
 
     Returns:
       The state, or ``None`` for a stateless rule.
@@ -229,8 +276,12 @@ def init_ensemble_state(spec: AggSpec, n_replicas: int, batch: int,
     rule = spec.rule()
     if not rule.stateful:
         return None
-    template = {"logits": torch.empty((n_replicas, batch, vocab),
-                                      dtype=torch.float32, device="meta")}
+    shape = (n_replicas, batch, vocab)
+    mesh = _mesh_of(mesh)
+    if _split_model(mesh):
+        shape = local_shape(shape, logits_pspec(shape, mesh), mesh)
+    template = {"logits": torch.empty(shape, dtype=torch.float32,
+                                      device="meta")}
     return init_state(rule, template, flat=False, rep_dims=(batch,),
                       device=resolve_device(device))
 
@@ -292,21 +343,43 @@ def _maybe_attack_logits(stack: torch.Tensor, spec: AggSpec,
                             **akw)["logits"]
 
 
-def _aggregate(spec: AggSpec, stack: torch.Tensor, state, stateful: bool):
+def _aggregate(spec: AggSpec, stack: torch.Tensor, state, stateful: bool,
+               mesh=None):
     """One ``aggregate_logits`` under ``spec``: ``(agg, diag, state)``
     (the state passes through for a stateless rule)."""
     out = aggregate_logits(
         stack, spec.f_declared, spec.effective_gar,
         agg_dtype=spec.agg_dtype, distance_backend=spec.distance_backend,
-        state=state if stateful else None,
+        mesh=mesh, state=state if stateful else None,
         history_window=spec.history_window, rep_lr=spec.rep_lr,
         rep_decay=spec.rep_decay)
     return out[0], out[1], (out[2] if stateful else state)
 
 
+def _ensemble_size(mesh, n_replicas: Optional[int]) -> Optional[int]:
+    """The step builders' ``mesh`` / ``n_replicas`` pair, checked: a mesh
+    whose ``data`` axis may split the ensemble needs its size."""
+    mesh = _mesh_of(mesh)
+    if (mesh is not None and n_replicas is None
+            and mesh_axis_sizes(mesh).get("data", 1) > 1):
+        raise ValueError(
+            "mesh= with a data axis needs n_replicas=: the ensemble's "
+            "size, which says whether data splits the replicas")
+    return n_replicas
+
+
+def _whole_stack(local: torch.Tensor, n_replicas, mesh) -> torch.Tensor:
+    """Every replica's logits from this rank's (gathered over ``data``
+    when it splits the ensemble)."""
+    if mesh is None or n_replicas is None:
+        return local
+    return gather_replicas(local, n_replicas, mesh)
+
+
 def make_robust_prefill_step(cfg: ModelConfig, spec: AggSpec,
                              cache_len: int = 0, impl: str = "auto",
-                             mesh=None) -> Callable:
+                             mesh=None,
+                             n_replicas: Optional[int] = None) -> Callable:
     """Build the ensemble prefill: every replica's forward, then a
     robust first token.
 
@@ -315,8 +388,12 @@ def make_robust_prefill_step(cfg: ModelConfig, spec: AggSpec,
       spec: the serving ``AggSpec``.
       cache_len: decode-cache positions (``0``: the prompt's length).
       impl: attention path of the prefill.
-      mesh: must be ``None`` (ROADMAP item 9; checked with the spec's
-        backend when the step is built).
+      mesh: a rank's ``Mesh``, or ``None`` (see the module docstring):
+        the step then takes this rank's replicas
+        (``sharding.local_replicas``), gathers their logits over
+        ``data`` and aggregates over the mesh.
+      n_replicas: the ensemble's size; needed under a mesh with a
+        ``data`` axis larger than 1.
 
     Returns:
       ``prefill_step(stacked_params, tokens[, extra]) -> (agg_logits,
@@ -324,20 +401,23 @@ def make_robust_prefill_step(cfg: ModelConfig, spec: AggSpec,
       replica axis (every replica sees the same prompt), the
       last-position ``(n, B, V)`` logits aggregated through
       ``spec.gar`` (stateful rules from a zero state: the carried state
-      starts on the decode stream), the caches replica-stacked.
+      starts on the decode stream), the caches replica-stacked (under a
+      mesh, this rank's replicas').
     """
-    _serving_backend(spec.distance_backend, mesh)
+    n_replicas = _ensemble_size(mesh, n_replicas)
+    resolve_distance_backend(spec.distance_backend)
 
     def prefill_step(stacked_params, tokens: torch.Tensor,
                      extra: Optional[torch.Tensor] = None):
         logits, caches = torch.func.vmap(
             lambda p: prefill(p, cfg, tokens, extra, cache_len=cache_len,
                               impl=impl))(stacked_params)
-        stack = logits[:, :, -1, :].to(torch.float32)
+        stack = _whole_stack(logits[:, :, -1, :].to(torch.float32),
+                             n_replicas, mesh)
         out = aggregate_logits(
             stack, spec.f_declared, spec.effective_gar,
             agg_dtype=spec.agg_dtype,
-            distance_backend=spec.distance_backend,
+            distance_backend=spec.distance_backend, mesh=mesh,
             history_window=spec.history_window,
             rep_lr=spec.rep_lr, rep_decay=spec.rep_decay)
         return out[0], caches, out[1]
@@ -345,15 +425,20 @@ def make_robust_prefill_step(cfg: ModelConfig, spec: AggSpec,
     return prefill_step
 
 
-def make_robust_serve_step(cfg: ModelConfig, spec: AggSpec,
-                           mesh=None) -> Callable:
+def make_robust_serve_step(cfg: ModelConfig, spec: AggSpec, mesh=None,
+                           n_replicas: Optional[int] = None) -> Callable:
     """Build the robust ensemble decode step.
 
     Args:
       cfg: every replica's model configuration.
       spec: the serving ``AggSpec``; ``spec.attack`` (``"none"`` to
         disable) poisons the last ``spec.f`` replicas' logits.
-      mesh: must be ``None`` (ROADMAP item 9).
+      mesh: a rank's ``Mesh``, or ``None``: the step then takes this
+        rank's replicas and their caches, gathers the logits over
+        ``data``, attacks the whole stack (every rank draws the same
+        noise) and aggregates over the mesh (see the module docstring).
+      n_replicas: the ensemble's size; needed under a mesh with a
+        ``data`` axis larger than 1.
 
     Returns:
       ``serve_step(stacked_params, stacked_cache, token, pos,
@@ -365,7 +450,8 @@ def make_robust_serve_step(cfg: ModelConfig, spec: AggSpec,
       int32; thread the returned state into the next call (``None`` for
       a stateless rule).
     """
-    _serving_backend(spec.distance_backend, mesh)
+    n_replicas = _ensemble_size(mesh, n_replicas)
+    resolve_distance_backend(spec.distance_backend)
     stateful = spec.rule().stateful
 
     def serve_step(stacked_params, stacked_cache, token: torch.Tensor, pos,
@@ -373,16 +459,18 @@ def make_robust_serve_step(cfg: ModelConfig, spec: AggSpec,
         logits, new_cache = torch.func.vmap(
             lambda p, c: decode_step(p, cfg, c, token, pos)
         )(stacked_params, stacked_cache)
-        stack = logits[:, :, 0, :].to(torch.float32)
+        stack = _whole_stack(logits[:, :, 0, :].to(torch.float32),
+                             n_replicas, mesh)
         stack = _maybe_attack_logits(stack, spec, pos)
-        agg, diag, new_state = _aggregate(spec, stack, agg_state, stateful)
+        agg, diag, new_state = _aggregate(spec, stack, agg_state, stateful,
+                                          mesh)
         return agg, new_cache, diag, (new_state if stateful else None)
 
     return serve_step
 
 
-def make_robust_verify_step(cfg: ModelConfig, spec: AggSpec,
-                            mesh=None) -> Callable:
+def make_robust_verify_step(cfg: ModelConfig, spec: AggSpec, mesh=None,
+                            n_replicas: Optional[int] = None) -> Callable:
     """Build the batched speculative-verify step.
 
     Aggregation runs per position in stream order: a loop over the
@@ -396,7 +484,11 @@ def make_robust_verify_step(cfg: ModelConfig, spec: AggSpec,
         must hold).
       spec: the serving ``AggSpec`` (``spec.attack`` poisons every block
         position).
-      mesh: must be ``None`` (ROADMAP item 9).
+      mesh: a rank's ``Mesh``, or ``None``: as
+        :func:`make_robust_serve_step`'s, each of the ``k`` aggregations
+        over the mesh.
+      n_replicas: the ensemble's size; needed under a mesh with a
+        ``data`` axis larger than 1.
 
     Returns:
       ``verify(stacked_params, stacked_cache, tokens, pos,
@@ -407,7 +499,8 @@ def make_robust_verify_step(cfg: ModelConfig, spec: AggSpec,
     """
     from repro_torch.dist.robust import DistAggResult
     from repro_torch.models import verify_supported
-    _serving_backend(spec.distance_backend, mesh)
+    n_replicas = _ensemble_size(mesh, n_replicas)
+    resolve_distance_backend(spec.distance_backend)
     ok, reason = verify_supported(cfg)
     if not ok:
         raise ValueError(
@@ -419,13 +512,14 @@ def make_robust_verify_step(cfg: ModelConfig, spec: AggSpec,
         logits, new_cache = torch.func.vmap(
             lambda p, c: verify_step(p, cfg, c, tokens, pos)
         )(stacked_params, stacked_cache)
-        stack = logits.to(torch.float32)            # (n, B, k, V)
+        stack = _whole_stack(logits.to(torch.float32), n_replicas,
+                             mesh)                  # (n, B, k, V)
         stack = _maybe_attack_logits(stack, spec, pos)
         aggs, diags = [], []
         for j in range(stack.shape[2]):             # stream order
             with named_span("serve/verify"):
                 agg, diag, agg_state = _aggregate(spec, stack[:, :, j],
-                                                  agg_state, stateful)
+                                                  agg_state, stateful, mesh)
             aggs.append(agg)
             diags.append(diag)
         diag = DistAggResult(*(torch.stack(fs) for fs in zip(*diags)))

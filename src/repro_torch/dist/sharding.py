@@ -29,11 +29,10 @@ from repro_torch.dist.mesh import mesh_axis_sizes
 
 __all__ = ["LEGACY_RULES", "P", "batch_pspec", "cache_shardings",
            "ensemble_cache_shardings", "ensemble_param_shardings",
-           "gather_shard", "gather_tree", "gram_pspec", "gram_shardings",
-           "local_shard",
-           "local_shape", "model_dim", "param_shardings",
-           "per_worker_specs",
-           "shard_tree",
+           "gather_replicas", "gather_shard", "gather_tree", "gram_pspec",
+           "gram_shardings", "local_replicas", "local_shard", "local_shape",
+           "logits_pspec", "model_dim", "param_shardings",
+           "per_worker_specs", "replica_rows", "shard_tree",
            "tree_map_with_path"]
 
 #: pre-iteration parameter rules (the reference's A/B baseline)
@@ -268,6 +267,79 @@ def ensemble_cache_shardings(cache: Any, mesh) -> Any:
         return P()
 
     return tree_map_with_path(spec_for, cache)
+
+
+def replica_rows(n: int, mesh) -> Tuple[slice, bool]:
+    """This rank's replicas of an ensemble of ``n`` and whether ``data``
+    splits them: the leading entry of :func:`ensemble_param_shardings`
+    (``data`` when it divides ``n``, else every replica on every rank).
+
+    Args:
+      n: the ensemble's size.
+      mesh: this rank's mesh.
+
+    Returns:
+      ``(rows, split)``: the slice of the replica axis this rank holds.
+    """
+    data = mesh_axis_sizes(mesh).get("data", 1)
+    if data > 1 and n % data == 0 and n >= data:
+        per = n // data
+        i = mesh.index("data")
+        return slice(i * per, (i + 1) * per), True
+    return slice(0, n), False
+
+
+def local_replicas(tree: Any, mesh, n: Optional[int] = None) -> Any:
+    """This rank's replicas of a replica-stacked tree (views).
+
+    Args:
+      tree: a tree of ``(n, ...)`` leaves (parameters or caches).
+      mesh: this rank's mesh.
+      n: the ensemble's size (``None``: the leaves' leading axis).
+
+    Returns:
+      The tree with each leaf's leading axis cut to :func:`replica_rows`.
+    """
+    leaves = tree_leaves(tree)
+    rows, _ = replica_rows(leaves[0].shape[0] if n is None else n, mesh)
+    return tree_unflatten(tree, [x[rows] for x in leaves])
+
+
+def gather_replicas(x: torch.Tensor, n: int, mesh) -> torch.Tensor:
+    """Every replica's rows of ``x`` from this rank's (the inverse of
+    :func:`local_replicas` on one tensor), in replica order.
+
+    Args:
+      x: ``(n_local, ...)``, this rank's replicas' rows.
+      n: the ensemble's size.
+      mesh: this rank's mesh.
+
+    Returns:
+      ``(n, ...)``, the same on every rank of ``data`` (``x`` itself
+      when ``data`` does not split the ensemble).
+    """
+    _, split = replica_rows(n, mesh)
+    return mesh.all_gather(x, "data", 0) if split else x
+
+
+def logits_pspec(shape: Sequence[int], mesh) -> P:
+    """Partition spec of a replica-stacked ``(n, ..., vocab)`` logits
+    stack on the sharded aggregation: :func:`gram_pspec`'s, which puts
+    the vocabulary on ``model`` whenever it divides (it is the largest
+    trailing dim), else the stack whole on every rank.  The slot axis is
+    never split: serving state is reset per slot on every rank.
+
+    Args:
+      shape: the stack's global shape.
+      mesh: the mesh.
+
+    Returns:
+      :class:`P`: ``model`` on the last dim, or replicated.
+    """
+    spec = gram_pspec(shape, mesh)
+    if model_dim(spec) != len(shape) - 1:
+        return P()
+    return spec
 
 
 def cache_shardings(cache: Any, mesh) -> Any:

@@ -61,7 +61,7 @@ from repro_torch.dist.robust import (_shards, distributed_aggregate,
 from repro_torch.dist.sharding import (_spec_leaves, gather_tree,
                                        gram_shardings, local_shard,
                                        local_shape, model_dim,
-                                       param_shardings)
+                                       param_shardings, replica_rows)
 from repro_torch.models import forward
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.schema import core_metrics, global_norm, selection_weight
@@ -208,13 +208,9 @@ class _MeshLayout:
         return local_shard(g, self.gspecs[k], self.mesh)
 
     def rows(self, n: int) -> Tuple[slice, bool]:
-        """This rank's workers and whether ``data`` splits them."""
-        data = self.mesh.size("data")
-        if data > 1 and n % data == 0:
-            per = n // data
-            i = self.mesh.index("data")
-            return slice(i * per, (i + 1) * per), True
-        return slice(0, n), False
+        """This rank's workers and whether ``data`` splits them (the
+        rule that places replicas, ``sharding.replica_rows``)."""
+        return replica_rows(n, self.mesh)
 
     def total(self, parts):
         """Per-leaf partial reductions -> their total over every rank's

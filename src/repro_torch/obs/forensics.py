@@ -26,7 +26,7 @@ product XLA runs for the reference's ``jnp.mean``.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,7 +35,7 @@ from repro_torch.obs.buffer import (DEFAULT_OBS_CAPACITY, AggDiagnostics,
                                     push_record)
 
 __all__ = ["OBS_SKETCH", "dense_diagnostics", "make_obs", "obs_name",
-           "tree_diagnostics"]
+           "sketch_spans", "tree_diagnostics"]
 
 #: max coordinates the forensic reductions touch per record; the dense
 #: path samples this many across evenly spaced contiguous blocks, the
@@ -174,17 +174,38 @@ def dense_diagnostics(grads: torch.Tensor, gradient: torch.Tensor,
         agg_dev=agg_dev, spread=_mean(dist, 0))
 
 
+def sketch_spans(numels: Sequence[int]) -> List[Tuple[int, int]]:
+    """The tree sketch's window of each leaf.
+
+    The :data:`OBS_SKETCH` coordinate budget is apportioned over the
+    leaves by size; each leaf contributes one centered contiguous slice
+    of its flattened per-worker coordinates.
+
+    Args:
+      numels: each leaf's per-worker coordinate count, in leaf order.
+
+    Returns:
+      ``(start, size)`` of each leaf's window.
+    """
+    total = sum(numels)
+    spans = []
+    for d_leaf in numels:
+        s_leaf = max(1, min(d_leaf, round(OBS_SKETCH * d_leaf / total)))
+        spans.append(((d_leaf - s_leaf) // 2, s_leaf))
+    return spans
+
+
 def tree_diagnostics(leaves: Sequence[torch.Tensor],
                      agg_leaves: Sequence[torch.Tensor],
                      selected: torch.Tensor, scores: torch.Tensor,
                      f: int, step, reputation: torch.Tensor,
-                     staleness: torch.Tensor) -> AggDiagnostics:
+                     staleness: torch.Tensor,
+                     sketch: Optional[Callable] = None) -> AggDiagnostics:
     """Assemble one forensics row on the tree path.
 
-    The :data:`OBS_SKETCH` coordinate budget is apportioned over the
-    leaves by size; each leaf contributes one centered contiguous slice
-    of its flattened coordinates, so no flat ``(n, d)`` matrix is built.
-    Norm-like fields are scaled by ``sqrt(d / S)``.
+    The per-coordinate reductions run on :func:`sketch_spans`'s windows,
+    so no flat ``(n, d)`` matrix is built.  Norm-like fields are scaled
+    by ``sqrt(d / S)``.
 
     Args:
       leaves: worker-stacked ``(n, *dims)`` leaves the rule saw.
@@ -195,31 +216,44 @@ def tree_diagnostics(leaves: Sequence[torch.Tensor],
       step: aggregation step counter to stamp on the record.
       reputation: ``(n,)`` fp32 post-call reputation snapshot.
       staleness: ``(n,)`` fp32 staleness snapshot.
+      sketch: ``TreeContext.sketch`` when the leaves are a rank's slices
+        of a mesh's ``model`` axis: the windows are then read from the
+        whole leaves the slices make up, so every rank records what one
+        device records (``None``: the leaves are whole).
 
     Returns:
       A fully populated :class:`AggDiagnostics`.
     """
     n = leaves[0].shape[0]
     dev = leaves[0].device
-    total = sum(leaf[0].numel() for leaf in leaves)
+    if sketch is None:
+        numels = [leaf[0].numel() for leaf in leaves]
+        windows = []
+        for (start, size), leaf, agg in zip(sketch_spans(numels), leaves,
+                                             agg_leaves):
+            # contiguous windows, as the gathered ones: the reductions
+            # below then run in one order whatever the windows came from
+            g = leaf.reshape(n, -1)[:, start:start + size].to(
+                torch.float32).contiguous()
+            a = agg.to(torch.float32).reshape(-1)[start:start + size] \
+                .contiguous()
+            windows.append((g, a))
+    else:
+        numels, rows = sketch(leaves, agg_leaves)
+        windows = [(r[:n], r[n]) for r in rows]
+    total = sum(numels)
     d2 = torch.zeros((n,), dtype=torch.float32, device=dev)
     dev2 = torch.zeros((), dtype=torch.float32, device=dev)
     out_count = torch.zeros((n,), dtype=torch.float32, device=dev)
     coords = 0
-    for leaf, agg in zip(leaves, agg_leaves):
-        d_leaf = leaf[0].numel()
-        s_leaf = max(1, min(d_leaf, round(OBS_SKETCH * d_leaf / total)))
-        start = (d_leaf - s_leaf) // 2
-        g = leaf.reshape(n, -1)[:, start:start + s_leaf]
-        g = g.to(torch.float32)
-        a = agg.to(torch.float32).reshape(-1)[start:start + s_leaf]
+    for g, a in windows:
         d2 = d2 + torch.sum((g - a[None]) ** 2, dim=1)
         dev2 = dev2 + torch.sum((a - _mean(g, 0)) ** 2)
         lo, hi = _trim_bounds(g, f)
         out_mask = (g < lo[None]) | (g > hi[None])
         out_count = out_count + torch.sum(out_mask.to(torch.float32),
                                           dim=1)
-        coords += s_leaf
+        coords += g.shape[1]
     scale = float(total / max(coords, 1)) ** 0.5
     dist = torch.sqrt(d2) * scale
     return AggDiagnostics(
@@ -281,7 +315,7 @@ def make_obs(name: str, base: AggregatorRule,
                                            ctx.leaves[0].device)
             rec = tree_diagnostics(ctx.leaves, out.leaves, out.selected,
                                    out.scores, ctx.f, state.step, rep,
-                                   stale)
+                                   stale, sketch=ctx.sketch)
             return out, state._replace(obs=push_record(state.obs, rec))
 
     return AggregatorRule(

@@ -25,6 +25,15 @@ draft prefix that survives the aggregate plus one corrected token
 
 The engine runs where its parameters live; host counters
 (``positions``, ``last_token``) are int32 numpy, as in the reference.
+
+**Sharded mode** (``mesh=`` a rank's ``repro_torch.dist.mesh.Mesh``,
+ensemble mode only): every rank of the mesh runs the same engine on the
+same requests, so slots, positions, admissions and sampling are
+replicated host state.  A rank keeps its replicas (``data`` splits the
+ensemble where it divides, ``sharding.replica_rows``), each whole along
+``model``, their caches, the ``AggState`` of its vocabulary slice, and
+in speculative mode its own whole copy of the draft replica; the steps
+gather and aggregate over the mesh (``repro_torch.dist.serve_robust``).
 """
 from __future__ import annotations
 
@@ -73,8 +82,13 @@ class ServingEngine:
       cache_len: positions of a full attention cache.
       sampler: ``"greedy"`` (the only sampler, as in the reference).
       ensemble: the serving ``AggSpec`` (``None``: plain mode).
-      mesh: the ensemble's device mesh; must be ``None`` (ROADMAP item
-        9), unused in plain mode, as in the reference.
+      mesh: the ensemble's mesh (a rank's ``Mesh``; see the module
+        docstring), or ``None``; unused in plain mode, as in the
+        reference.  Under a mesh ``params`` is the whole ensemble (a
+        stacked tree or a list, on any device) and the engine keeps
+        copies of this rank's replicas and of the draft on the mesh's
+        device, so the caller may free the whole ensemble; a rank then
+        holds ``n / data`` full replicas (no tensor-parallel forward).
     """
 
     def __init__(self, params, cfg: ModelConfig, n_slots: int = 4,
@@ -92,6 +106,7 @@ class ServingEngine:
         self.agg_state = None
         self.spec_k = 0
         self.accept_counts: List[np.ndarray] = []
+        self.mesh = None
         if ensemble is None:
             self.params = params
             self.device = tree_leaves(params)[0].device
@@ -101,25 +116,40 @@ class ServingEngine:
                                                             pos)
             return
         # -- ensemble mode ----------------------------------------------------
-        from repro_torch.dist.serve_robust import (init_ensemble_state,
+        from repro_torch.dist.serve_robust import (_mesh_of,
+                                                   init_ensemble_state,
                                                    make_robust_prefill_step,
                                                    make_robust_serve_step,
                                                    replicate_cache,
                                                    stack_replicas)
         if isinstance(params, (list, tuple)):
             params = stack_replicas(params)
-        self.params = params
-        self.device = tree_leaves(params)[0].device
+        self.mesh = _mesh_of(mesh)
         self.n_replicas = tree_leaves(params)[0].shape[0]
-        self._decode = make_robust_serve_step(cfg, ensemble, mesh=mesh)
+        whole = params
+        if mesh is None:
+            self.params = params
+            self.device = tree_leaves(params)[0].device
+        else:
+            from repro_torch.dist.sharding import (local_replicas,
+                                                   replica_rows)
+            split = replica_rows(self.n_replicas, mesh)[1]
+            self.device = mesh.device
+            # copies when split, so the caller's whole ensemble can go
+            self.params = tree_map(
+                lambda x: x.to(self.device, copy=split),
+                local_replicas(params, mesh))
+        n_local = tree_leaves(self.params)[0].shape[0]
+        kw = dict(mesh=mesh, n_replicas=self.n_replicas)
+        self._decode = make_robust_serve_step(cfg, ensemble, **kw)
         self._ens_prefill = make_robust_prefill_step(
-            cfg, ensemble, cache_len=cache_len, mesh=mesh)
+            cfg, ensemble, cache_len=cache_len, **kw)
         self.cache = replicate_cache(
             init_cache(cfg, n_slots, cache_len, device=self.device),
-            self.n_replicas)
+            n_local)
         self.agg_state = init_ensemble_state(
             ensemble, self.n_replicas, n_slots, cfg.vocab_size,
-            device=self.device)
+            device=self.device, mesh=mesh)
         # -- speculative mode -------------------------------------------------
         k = int(getattr(ensemble, "speculative_k", 0) or 0)
         if k < 1:
@@ -133,12 +163,13 @@ class ServingEngine:
             raise ValueError(
                 f"draft_replica {self.draft_replica} out of range for "
                 f"{self.n_replicas} replicas")
-        self.draft_params = tree_map(lambda x: x[self.draft_replica],
-                                     params)
+        self.draft_params = tree_map(
+            lambda x: x[self.draft_replica].to(
+                self.device, copy=mesh is not None), whole)
         self.draft_cache = init_cache(cfg, n_slots, cache_len,
                                       device=self.device)
         self._propose = make_draft_propose(cfg, k)
-        self._verify = make_robust_verify_step(cfg, ensemble, mesh=mesh)
+        self._verify = make_robust_verify_step(cfg, ensemble, **kw)
         self._accept = accept_block
 
     # -- admission -----------------------------------------------------------
@@ -209,7 +240,8 @@ class ServingEngine:
             from repro_torch.serving.speculative import draft_cache_view
             self.draft_cache = self._spliced(
                 self.draft_cache, slot,
-                draft_cache_view(slot_cache, self.draft_replica),
+                draft_cache_view(slot_cache, self.draft_replica, self.mesh,
+                                 self.n_replicas),
                 replicated=False)
         self.active[slot] = req
         self.positions[slot] = len(req.prompt)

@@ -22,7 +22,7 @@ index, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -119,16 +119,31 @@ def accept_block(block: torch.Tensor, agg_logits: torch.Tensor, *,
     return emitted, (m + 1).to(torch.int32), v
 
 
-def draft_cache_view(stacked_cache: Any, replica: int) -> Any:
+def draft_cache_view(stacked_cache: Any, replica: int, mesh=None,
+                     n_replicas: Optional[int] = None) -> Any:
     """One replica's slice of a replica-stacked cache tree (the engine
     splices the draft replica's prefilled cache into the draft's own).
 
     Args:
       stacked_cache: a cache tree with a leading ``(n_replicas,)`` axis
-        on every leaf.
-      replica: which replica.
+        on every leaf (under a mesh, this rank's replicas').
+      replica: which replica (its index in the whole ensemble).
+      mesh: a rank's ``Mesh``, or ``None``.  When ``data`` splits the
+        ensemble, the rank holding ``replica`` broadcasts its slice over
+        ``data``, so every rank's draft starts from the same cache.
+      n_replicas: the ensemble's size (needed with ``mesh``).
 
     Returns:
       The cache tree without the replica axis.
     """
+    if mesh is not None:
+        from repro_torch.dist.sharding import replica_rows
+        rows, split = replica_rows(n_replicas, mesh)
+        if split:
+            owner, local = divmod(replica, rows.stop - rows.start)
+            mine = mesh.index("data") == owner
+            # a rank without the replica receives into a slice-shaped
+            # buffer
+            return tree_map(lambda x: mesh.broadcast(
+                x[local if mine else 0], "data", owner), stacked_cache)
     return tree_map(lambda x: x[replica], stacked_cache)

@@ -795,3 +795,44 @@ def test_two_gloo_ranks_share_the_card_through_k1(card):
                             ties):
         assert change_ratio(g.cuda(), w.cuda(), p, steps,
                             tie.cuda()) <= 1.0
+
+
+def test_two_gloo_ranks_serve_through_k5(card):
+    """``ServingEngine(mesh=)`` on a (2, 1) mesh of gloo ranks sharing the
+    card (reduced llama3.2-3b, 8 replicas, 4 per rank, the last
+    sign-flipped, ``bulyan-krum`` over ``fused``): every admission and
+    decode step of a rank launches exactly one K5, the poisoned replica
+    is never selected, the first decode step's gathered stack matches the
+    single-device engine's and the rank's aggregate equals
+    ``aggregate_logits`` on one device on it bit for bit, and the streams
+    equal the single-device engine's."""
+    import numpy as np
+
+    import torch_serve_mesh_check as serve_check
+    from repro_torch.dist.mesh import run_on_mesh
+
+    rng = np.random.default_rng(5)
+    reqs = [(rid, rng.integers(0, 1024, 8).astype(np.int32), 4)
+            for rid in range(3)]
+    setting = dict(arch="llama3_2_3b", layers=None, n=8, f=1, seed=1,
+                   reqs=reqs, slots=2, cache_len=32, runs=("token",))
+    single = run_on_mesh(serve_check.serve_rank, (1, 1),
+                         args=(dict(setting, single=True),), device="cuda",
+                         backend="gloo", timeout=600)[0]["token"]
+    res = run_on_mesh(serve_check.serve_rank, (2, 1), args=(setting,),
+                      device="cuda", backend="gloo", timeout=600)
+    k5 = {k: 0 for k in _build.LAUNCHES}
+    k5.update(pairwise_gram_partial=1, select_weights=1, fused_coordinate=1,
+              fused_aggregate=3)
+    for r in res:
+        run = r["token"]
+        assert r["n_local"] == 4
+        for kind in ("admit", "decode"):
+            assert run["calls"][kind]
+            for c in run["calls"][kind]:
+                assert c["launches"] == k5 and c["byz"] == 0.0
+        assert run["on_stack"]
+        got, want = run["stack"].double(), single["stack"].double()
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+        assert run["streams"] == single["streams"]

@@ -16,7 +16,8 @@ largest entry of what is compared.
   engine, a poisoned replica and a decode-time logits attack are
   rejected, ``AggState`` is carried across tokens, positions stay int32,
   telemetry off equals on bit for bit;
-* ``mesh=`` raises, naming ROADMAP item 9 (the sharded serving paths).
+* ``mesh=`` takes a rank's ``Mesh`` (the sharded serving paths
+  themselves are ``tests/test_torch_serve_sharded.py``'s).
 """
 import dataclasses
 
@@ -372,16 +373,32 @@ def test_robust_prefill_step_matches_the_reference():
             _close(g, w, what=f"{gar} cache")
 
 
-def test_mesh_is_not_ported():
+def test_mesh_must_be_a_mesh():
+    """``mesh=`` on every serving entry point takes a rank's ``Mesh`` and
+    names what it got otherwise; a mesh with a ``data`` axis needs the
+    ensemble's size."""
     tcfg = get_reduced("llama3_2_3b")
     spec = AggSpec(f=1, gar="krum")
+    want = "takes a repro_torch.dist.mesh.Mesh .* got object"
     for build in (tsr.make_robust_serve_step, tsr.make_robust_verify_step,
                   lambda c, s, mesh: tsr.make_robust_prefill_step(
                       c, s, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        with pytest.raises(TypeError, match=want):
             build(tcfg, spec, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(TypeError, match=want):
         tsr.aggregate_logits(torch.zeros(5, 2, 3), 1, "krum", mesh=object())
+    with pytest.raises(TypeError, match=want):
+        tsr.init_ensemble_state(AggSpec(f=1, gar="buffered-krum"), 5, 2, 3,
+                                device="cpu", mesh=object())
+    with pytest.raises(TypeError, match=want):
+        ServingEngine([{"w": torch.zeros(2)}] * 3, tcfg, ensemble=spec,
+                      mesh=object())
+    grid = type("Grid", (), dict(axis_names=("data", "model"),
+                                 devices=np.empty((2, 1)),
+                                 index=lambda self, a: 0,
+                                 all_gather=None))()
+    with pytest.raises(ValueError, match="needs n_replicas="):
+        tsr.make_robust_serve_step(tcfg, spec, mesh=grid)
 
 
 # ---------------------------------------------------------------------------
