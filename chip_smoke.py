@@ -238,6 +238,25 @@ Phases, in order; any failure exits nonzero before the last line:
    serving stack, 9d's K5 on a rank's gathered stack and K1 on a rank's
    vocabulary slice, and phase 10a's K1 on a rank's embedding slice added),
    then the result line ``{"ok": true, "device": {...}}``.
+12. The launch harness (``repro_torch.launch``), after phase 10 and
+   before the JSON lines.  (12a) ``python -m repro_torch.launch.dryrun``
+   as subprocesses, all started together, on the cases of the
+   reference's ``tests/test_dryrun.py`` (reduced mamba2-130m
+   ``train_4k`` on 16 x 16, reduced gemma3-1b ``decode_32k`` on
+   2 x 16 x 16, ``--serve-gar bulyan-krum``, ``--async-tau 3`` with
+   ``stale-bulyan-krum``) and gemma3-1b ``train_4k`` at full width over
+   ``fused``: each artifact's schema as the reference's tests check it,
+   its roofline (H100 data-sheet figures, an estimate), launches and
+   seconds printed.  (12b) the hold: the dry-run's trace under
+   ``RecordingMesh`` of 10a's step for each rank position, and of 9d's
+   decode step on (2, 1) and (1, 2), on ``meta`` tensors; the predicted
+   collectives per kind (calls and result bytes) must equal what each
+   gloo rank recorded per counted step (``Mesh.comm["by_kind"]``, the
+   step call's own), the predicted launches the measured ones (K1 74 per
+   rank per 10a step, nothing else; 9d's K5 parts or one K1 per decode
+   step), and the predicted argument bytes must not exceed the rank's
+   measured peak; the predicted argument + temp bytes and the roofline
+   terms are printed beside the measured peak and ms per step.
 """
 from __future__ import annotations
 
@@ -2899,6 +2918,15 @@ def phase_shard_serve(torch, np, rt, smi):
           f"{t_single:.1f} s)", flush=True)
     out.update(k1_row=row1, k1_launches=res_m[0]["token"]["launches"][
         K1_ONLY])
+    # what phase 12b holds its prediction to: each rank's decode steps
+    out["decode_calls"] = {
+        shape: [{"coords": r["coords"], "peak_gib": r["token"]["peak_gib"],
+                 "calls": [{k: c[k] for k in ("comm_kinds", "launches",
+                                              "ms")}
+                           for c in r["token"]["calls"]["decode"]]}
+                for r in rs]
+        for shape, rs in ((SHARD_SERVE_FULL, res), (SHARD_SERVE_MODEL,
+                                                    res_m))}
 
     # 9e: the model axis on a (2, 2) mesh, verify, telemetry (F4)
     t0 = time.perf_counter()
@@ -3139,8 +3167,12 @@ def phase_mesh_full(torch, rt, smi):
     row = dict(ms=k["ms"], plain_ms=k["plain_ms"],
                library_ms=k["library_ms"], max_abs_err=k["max_abs_err"],
                **bound(n, d, LLM_F, K1_ONLY, 4))
+    ranks = [{k: r[k] for k in ("coords", "comm_kinds", "launches",
+                                 "step_peak_gib", "step_ms", "comm_s")}
+             for r in res]
     return {"row": row, "launches": sum(c[K1_ONLY]
-                                        for c in res[0]["launches"])}
+                                        for c in res[0]["launches"]),
+            "ranks": ranks}
 
 
 def stale_scaled(rt, leaves, versions, step: int):
@@ -3231,6 +3263,202 @@ def phase_mesh_reduced(torch, rt):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 12: the launch harness (dry-run on meta, held to the card's ranks)
+# ---------------------------------------------------------------------------
+
+#: 12a: the reference's ``tests/test_dryrun.py`` cases, then gemma3-1b
+#: at full width on the kernels' route
+DRYRUN_CASES = (
+    ("mamba2-130m train_4k", ["--arch", "mamba2-130m", "--shape",
+                              "train_4k", "--reduced"]),
+    ("gemma3-1b decode_32k multi-pod", ["--arch", "gemma3-1b", "--shape",
+                                        "decode_32k", "--reduced",
+                                        "--multi-pod"]),
+    ("gemma3-1b serve-gar", ["--arch", "gemma3-1b", "--shape",
+                             "decode_32k", "--reduced", "--serve-gar",
+                             "bulyan-krum", "--serve-f", "1",
+                             "--serve-replicas", "7"]),
+    ("mamba2-130m async", ["--arch", "mamba2-130m", "--shape", "train_4k",
+                           "--reduced", "--async-tau", "3",
+                           "--async-schedule", "fixed", "--gar",
+                           "stale-bulyan-krum", "--attack",
+                           "stale_replay"]),
+    ("gemma3-1b train_4k full width", ["--arch", "gemma3-1b", "--shape",
+                                       "train_4k", "--distance-backend",
+                                       "fused"]),
+)
+#: the artifact keys the reference's tests and ``summarize`` read
+DRYRUN_KEYS = ("mesh", "multi_pod", "gar", "memory_analysis",
+               "cost_analysis", "collectives", "top_collective_ops",
+               "hlo_lines", "roofline", "kernel_launches", "lower_s",
+               "compile_s", "no_effect", "overrides")
+
+
+def phase_dryrun():
+    """12a: ``python -m repro_torch.launch.dryrun`` on each case of
+    :data:`DRYRUN_CASES`, all started together, every artifact's schema
+    checked as the reference's tests check theirs.  Returns the
+    artifacts by case name."""
+    import tempfile
+    out_dir = pathlib.Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for i, (name, args) in enumerate(DRYRUN_CASES):
+            path = out_dir / f"{i}.json"
+            procs.append((name, path, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                 "--out", str(path)], env=env, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE, text=True)))
+        recs = {}
+        for name, path, proc in procs:
+            _, err = proc.communicate(timeout=300)
+            expect(proc.returncode == 0, f"12a dry-run {name} exited "
+                   f"{proc.returncode}: {err[-2000:]}")
+            recs[name] = json.loads(path.read_text())
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in out_dir.glob("*"):
+            f.unlink()
+        out_dir.rmdir()
+    wall = time.perf_counter() - t0
+    for name, rec in recs.items():
+        for key in DRYRUN_KEYS:
+            expect(key in rec, f"12a {name}: no {key!r} in the artifact")
+        ro = rec["roofline"]
+        expect(ro["compute_s"] > 0 and rec["hlo_lines"] > 0,
+               f"12a {name}: compute_s {ro['compute_s']}, hlo_lines "
+               f"{rec['hlo_lines']}")
+        coll = rec["collectives"]
+        calls = sum(v["count"] for v in coll.values())
+        print(f"  ok  12a {name}: mesh {rec['mesh']}, roofline compute "
+              f"{ro['compute_s']:.4g} s / memory {ro['memory_s']:.4g} s / "
+              f"collective {ro['collective_s']:.4g} s, dominant "
+              f"{ro['dominant']}, useful FLOPs ratio "
+              f"{ro['useful_flops_ratio']}; {rec['cost_analysis']['flops']:.4g}"
+              f" FLOPs, {rec['cost_analysis']['bytes accessed']:.4g} bytes "
+              f"accessed, {calls} collectives for "
+              f"{ro['collective_bytes_per_chip']:,} bytes, temp "
+              f"{rec['memory_analysis']['temp_size_in_bytes']:,} bytes; "
+              f"launches {rec['kernel_launches']}; built in "
+              f"{rec['lower_s']} s, traced in {rec['compile_s']} s",
+              flush=True)
+    expect(recs["mamba2-130m train_4k"]["mesh"] == "16x16"
+           and sum(v["count"] for v in recs["mamba2-130m train_4k"][
+               "collectives"].values()) > 0, "12a: mamba2-130m train_4k")
+    expect(recs["gemma3-1b decode_32k multi-pod"]["mesh"] == "2x16x16",
+           "12a: the multi-pod mesh")
+    serve = recs["gemma3-1b serve-gar"]
+    expect(serve["serve_gar"] == "bulyan-krum"
+           and serve["serve_replicas"] == 7, "12a: the serve-gar record")
+    expect(recs["mamba2-130m async"]["async_tau"] == 3, "12a: async_tau")
+    full = recs["gemma3-1b train_4k full width"]
+    expect(full["kernel_launches"] == {K1_ONLY: LLM_LEAVES},
+           f"12a full width: launches {full['kernel_launches']}")
+    print(f"  12a: {len(recs)} dry-runs in {wall:.1f} s (in parallel; the "
+          f"roofline is H100 SXM data-sheet figures, an estimate)",
+          flush=True)
+    return recs
+
+
+def hold_calls(pred: dict, calls, launches: dict, what: str) -> None:
+    """A prediction's collectives per kind against each measured call's,
+    exactly, and its launches against ``launches`` (every kernel)."""
+    expect_launches(pred["launches"], per_step(launches), f"{what} "
+                    f"predicted")
+    for i, got in enumerate(calls):
+        expect(pred["by_kind"] == got, f"{what} step {i}: predicted "
+               f"collectives {pred['by_kind']}, measured {got}")
+
+
+def kinds_line(by_kind: dict) -> str:
+    return ", ".join(f"{k} {v['calls']} / {v['bytes']:,} B"
+                     for k, v in by_kind.items() if v["calls"])
+
+
+def phase_launch_hold(torch, np, rt, mesh: dict, serve: dict, smi: str):
+    """12b: the dry-run's trace (``RecordingMesh``) of phase 10a's step
+    and of 9d's decode steps, for each rank position, held to what the
+    card's gloo ranks recorded: collectives per kind per counted step
+    exactly, launches exactly; argument bytes at most the measured peak.
+    """
+    import dataclasses
+    dr = rt["dryrun"]
+    cfg = dataclasses.replace(rt["get_config"](LLM_ARCH),
+                              n_layers=LLM_LAYERS)
+    spec = rt["DistByzantineSpec"](f=LLM_F, gar="bulyan-krum",
+                                   attack="omniscient_linf",
+                                   distance_backend="fused")
+    batch = {"tokens": np.zeros((LLM_N, 1, LLM_SEQ), np.int32),
+             "labels": np.zeros((LLM_N, 1, LLM_SEQ), np.int32)}
+    t0 = time.perf_counter()
+    for rank, got in enumerate(mesh["ranks"]):
+        rm = dr.RecordingMesh(MESH_FULL, rank=rank)
+        expect(rm.coords == got["coords"], f"12b: rank {rank} at "
+               f"{rm.coords}, 10a's at {got['coords']}")
+        pred = dr.trace_train_step(cfg, spec, rt["get_optimizer"](
+            "momentum", MESH_LR), rm, batch, worker_chunk=1)
+        what = f"12b 10a rank {got['coords']}"
+        hold_calls(pred, got["comm_kinds"], {K1_ONLY: LLM_LEAVES}, what)
+        peak = max(got["step_peak_gib"]) * 2 ** 30
+        expect(pred["argument_bytes"] <= peak, f"{what}: predicted "
+               f"arguments {pred['argument_bytes']:,} B over the measured "
+               f"peak {peak:,.0f} B")
+        flops = pred["flops"]
+        terms = (flops / dr.PEAK_FLOPS_FP32, pred["bytes_accessed"]
+                 / dr.HBM_BW)
+        print(f"  ok  {what}: predicted per step {kinds_line(pred['by_kind'])}"
+              f" = measured in each of {len(got['comm_kinds'])} steps; K1 "
+              f"{LLM_LEAVES} and no other kernel, as measured", flush=True)
+        print(f"  {what}: predicted arguments + temp "
+              f"{pred['argument_bytes'] / 2 ** 30:.2f} + "
+              f"{pred['temp_bytes'] / 2 ** 30:.2f} GiB beside the measured "
+              f"peak {peak / 2 ** 30:.2f} GiB; roofline compute "
+              f"{terms[0] * 1e3:.1f} ms ({flops:.4g} FLOPs at 67e12) / memory"
+              f" {terms[1] * 1e3:.1f} ms beside the measured ms per step "
+              f"{[round(v, 1) for v in got['step_ms']]}, of it in "
+              f"collectives {[round(v * 1e3, 1) for v in got['comm_s']]} ms"
+              f"; traced in {pred['seconds']:.1f} s ({smi})", flush=True)
+    sspec = rt["AggSpec"](f=SERVE_F, gar="bulyan-krum",
+                          distance_backend="fused")
+    pos = np.zeros((SERVE_SLOTS,), np.int32)
+    for shape, want in ((SHARD_SERVE_FULL, K5_CALL),
+                        (SHARD_SERVE_MODEL, K1_CALL)):
+        for rank, got in enumerate(serve["decode_calls"][shape]):
+            rm = dr.RecordingMesh(shape, rank=rank)
+            expect(rm.coords == got["coords"], f"12b: rank {rank} at "
+                   f"{rm.coords}, 9d's at {got['coords']}")
+            pred = dr.trace_serve_step(cfg, sspec, rm, SHARD_SERVE_N,
+                                       SERVE_SLOTS, SERVE_CACHE, pos=pos)
+            what = f"12b 9d {shape} rank {got['coords']}"
+            hold_calls(pred, [c["comm_kinds"] for c in got["calls"]], want,
+                       what)
+            for c in got["calls"]:
+                expect_launches(c["launches"], per_step(want), what)
+            peak = got["peak_gib"] * 2 ** 30
+            expect(pred["argument_bytes"] <= peak, f"{what}: predicted "
+                   f"arguments {pred['argument_bytes']:,} B over the "
+                   f"measured peak {peak:,.0f} B")
+            ms = [c["ms"] for c in got["calls"]]
+            print(f"  ok  {what}: predicted per decode step "
+                  f"{kinds_line(pred['by_kind'])} = measured in each of "
+                  f"{len(got['calls'])} decode steps; launches "
+                  f"{ {k: v for k, v in pred['launches'].items() if v} } as "
+                  f"measured; arguments + temp "
+                  f"{pred['argument_bytes'] / 2 ** 30:.2f} + "
+                  f"{pred['temp_bytes'] / 2 ** 30:.2f} GiB beside the "
+                  f"measured peak {peak / 2 ** 30:.2f} GiB; measured ms per "
+                  f"decode step median {statistics.median(ms):.2f} ({smi})",
+                  flush=True)
+    print(f"  12b: the holds took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def print_ptxas(log: pathlib.Path) -> None:
     """One line per kernel of an ``-Xptxas -v`` build log: its (mangled)
     name, registers, shared memory and spill bytes."""
@@ -3305,6 +3533,7 @@ def main() -> int:
     import torch_serve_mesh_check as serve_mesh_check
     import torch_serving_compare as serving_compare
     from repro_torch.dist.mesh import run_on_mesh
+    from repro_torch.launch import dryrun
     rt = dict(simple=simple, trainer=trainer, fused_agg=fused_agg,
               build=_build, AggSpec=AggSpec, unflatten=unflatten,
               ByzantineBatcher=ByzantineBatcher, mnist_like=mnist_like,
@@ -3340,7 +3569,8 @@ def main() -> int:
               gram_shardings=sharding.gram_shardings,
               per_worker_specs=sharding.per_worker_specs,
               make_async_train_step=async_train.make_async_train_step,
-              init_async_state=async_train.init_async_state)
+              init_async_state=async_train.init_async_state,
+              dryrun=dryrun)
     ops = {"fused_agg": fused_agg, "pairwise_gram": pairwise_gram,
            "bulyan_select": bulyan_select, "coord_stats": coord_stats}
 
@@ -3447,6 +3677,14 @@ def main() -> int:
     mesh = phase_mesh_full(torch, rt, smi)
     phase_mesh_reduced(torch, rt)
     print(f"  phase 10 took {time.perf_counter() - t10:.1f} s ({smi})",
+          flush=True)
+
+    print("== phase 12: the launch harness (dry-run on meta, held to the "
+          "card's ranks)", flush=True)
+    t12 = time.perf_counter()
+    phase_dryrun()
+    phase_launch_hold(torch, np, rt, mesh, shard_serve, smi)
+    print(f"  phase 12 took {time.perf_counter() - t12:.1f} s ({smi})",
           flush=True)
 
     kernels = []

@@ -35,6 +35,8 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
 
 import torch
 
+from repro_torch.device import host_index
+
 __all__ = ["DEFAULT_HISTORY_WINDOW", "AggregatorRule", "TreeAgg",
            "TreeContext", "quorum", "register_rule", "register_tree_impl",
            "resolve_rule", "rule_names"]
@@ -140,6 +142,7 @@ class TreeContext:
         Returns:
           List of ``(*dims,)`` leaves in ``cdt``.
         """
+        i = host_index(i)
         return [leaf[i].to(self.cdt) for leaf in self.leaves]
 
     def weighted_sum(self, weights: torch.Tensor) -> List[torch.Tensor]:

@@ -17,6 +17,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import gars
+from repro_torch.device import host_index
 from repro_torch.core.types import AggResult
 
 __all__ = ["coordinate_phase", "coordinate_phase_ref", "make_bulyan",
@@ -69,7 +70,7 @@ def _recurse(dist2: torch.Tensor, f: int, pos: Callable) -> torch.Tensor:
     for t in range(n - 2 * f):
         n_rem = n - t
         sub = dist2[rem[:, None], rem[None, :]]
-        p = int(pos(sub, rem, n_rem))
+        p = host_index(pos(sub, rem, n_rem))
         picked.append(rem[p])
         rem = torch.cat([rem[:p], rem[p + 1:]])
     return torch.stack(picked)

@@ -109,7 +109,10 @@ def resolve_tau(tau: Any, n: int, device=None) -> torch.Tensor:
 
 def _step_generator(seed: int, step: int, device) -> torch.Generator:
     """A generator whose stream depends on ``(seed, step)`` only, so a
-    step's draw does not depend on the steps before it."""
+    step's draw does not depend on the steps before it (``None`` on the
+    ``meta`` device, where a trace draws without one)."""
+    if torch.device(device).type == "meta":
+        return None
     key = int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
     return torch.Generator(device).manual_seed(key)
 

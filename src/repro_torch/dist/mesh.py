@@ -42,8 +42,9 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["Mesh", "make_host_mesh", "make_production_mesh",
-           "mesh_axis_sizes", "run_on_mesh"]
+__all__ = ["COMM_KINDS", "Mesh", "comm_since", "comm_snapshot",
+           "make_host_mesh", "make_production_mesh", "mesh_axis_sizes",
+           "run_on_mesh"]
 
 _DEFAULT_NAMES = ("data", "model")
 
@@ -92,10 +93,15 @@ class Mesh:
       coords: ``{axis name: this rank's index along it}``.
       device: where this rank's tensors live.
       backend: ``"gloo"`` or ``"nccl"``.
-      comm: ``{"calls", "seconds", "bytes"}`` accumulated over this
-        rank's collectives: their count, their host-clock time (a CUDA
-        tensor's collective waits for the stream first, so its time is
-        the collective's own) and the bytes of their results.
+      comm: ``{"calls", "seconds", "bytes", "by_kind"}`` accumulated
+        over this rank's collectives: their count, their host-clock time
+        (a CUDA tensor's collective waits for the stream first, so its
+        time is the collective's own), the bytes of their results (none
+        on a rank that a ``gather`` leaves without one) and, per kind
+        (``"all_reduce"``, ``"all_gather"``, ``"gather"``,
+        ``"broadcast"``), ``{"calls", "bytes"}``: the yardstick the
+        launch harness's predictions are held to
+        (``repro_torch.launch.dryrun.RecordingMesh`` counts the same).
     """
 
     def __init__(self, shape: Tuple[int, ...], axis_names: Sequence[str],
@@ -109,7 +115,7 @@ class Mesh:
         self.device = torch.device(device)
         self.backend = backend
         self._groups = groups or {}
-        self.comm = {"calls": 0, "seconds": 0.0, "bytes": 0}
+        self.comm = _zero_comm()
 
     def __repr__(self) -> str:
         return (f"Mesh(shape={self.shape}, axis_names={self.axis_names}, "
@@ -126,7 +132,12 @@ class Mesh:
 
     def reset_comm(self) -> None:
         """Zero the collective counters of :attr:`comm`."""
-        self.comm = {"calls": 0, "seconds": 0.0, "bytes": 0}
+        self.comm = _zero_comm()
+
+    def _count(self, kind: str, t0: float, nbytes: int) -> None:
+        """Count one collective of ``kind`` whose result has ``nbytes``."""
+        _count_comm(self.comm, kind, nbytes)
+        self.comm["seconds"] += time.perf_counter() - t0
 
     # -- collectives over one axis ---------------------------------------
 
@@ -140,16 +151,15 @@ class Mesh:
                 return x.detach().to("cpu").contiguous()
         return x.detach().clone().contiguous()
 
-    def _done(self, t0: float, parts, like: torch.Tensor, dim: int = 0):
+    def _done(self, kind: str, t0: float, parts, like: torch.Tensor,
+              dim: int = 0):
         """The result on ``like``'s device (staged parts concatenated
         there, not in host memory), with the call counted."""
         out = (parts[0].to(like.device) if len(parts) == 1 else
                torch.cat([p.to(like.device) for p in parts], dim=dim))
         if like.device.type == "cuda":
             torch.cuda.synchronize(like.device)
-        self.comm["calls"] += 1
-        self.comm["seconds"] += time.perf_counter() - t0
-        self.comm["bytes"] += out.numel() * out.element_size()
+        self._count(kind, t0, out.numel() * out.element_size())
         return out
 
     def _rank_at(self, axis: str, index: int) -> int:
@@ -173,7 +183,7 @@ class Mesh:
         t0 = time.perf_counter()
         buf = self._stage(x)
         dist.all_reduce(buf, group=self._groups[axis])
-        return self._done(t0, [buf], x)
+        return self._done("all_reduce", t0, [buf], x)
 
     def all_gather(self, x: torch.Tensor, axis: str,
                    dim: int = 0) -> torch.Tensor:
@@ -195,7 +205,7 @@ class Mesh:
         buf = self._stage(x)
         parts = [torch.empty_like(buf) for _ in range(size)]
         dist.all_gather(parts, buf, group=self._groups[axis])
-        return self._done(t0, parts, x, dim)
+        return self._done("all_gather", t0, parts, x, dim)
 
     def gather(self, x: torch.Tensor, axis: str, dim: int = 0,
                dst: int = 0):
@@ -222,10 +232,9 @@ class Mesh:
         dist.gather(buf, gather_list=parts, dst=self._rank_at(axis, dst),
                     group=self._groups[axis])
         if not mine:
-            self.comm["calls"] += 1
-            self.comm["seconds"] += time.perf_counter() - t0
+            self._count("gather", t0, 0)
             return None
-        return self._done(t0, parts, x, dim)
+        return self._done("gather", t0, parts, x, dim)
 
     def broadcast(self, x: torch.Tensor, axis: str,
                   src: int = 0) -> torch.Tensor:
@@ -246,7 +255,46 @@ class Mesh:
         buf = self._stage(x)
         dist.broadcast(buf, src=self._rank_at(axis, src),
                        group=self._groups[axis])
-        return self._done(t0, [buf], x)
+        return self._done("broadcast", t0, [buf], x)
+
+
+#: the collectives a :class:`Mesh` runs, the keys of ``comm["by_kind"]``
+COMM_KINDS = ("all_reduce", "all_gather", "gather", "broadcast")
+
+
+def _zero_comm() -> Dict[str, Any]:
+    return {"calls": 0, "seconds": 0.0, "bytes": 0,
+            "by_kind": {k: {"calls": 0, "bytes": 0} for k in COMM_KINDS}}
+
+
+def _count_comm(comm: Dict[str, Any], kind: str, nbytes: int) -> None:
+    """Add one collective of ``kind`` with a result of ``nbytes`` to a
+    ``comm`` record (totals and the kind's entry)."""
+    comm["calls"] += 1
+    comm["bytes"] += nbytes
+    comm["by_kind"][kind]["calls"] += 1
+    comm["by_kind"][kind]["bytes"] += nbytes
+
+
+def comm_since(before: Dict[str, Any], after: Dict[str, Any]
+               ) -> Dict[str, Dict[str, int]]:
+    """``comm["by_kind"]`` of the collectives between two snapshots of a
+    mesh's :attr:`Mesh.comm` (take them with :func:`comm_snapshot`).
+
+    Returns:
+      ``{kind: {"calls", "bytes"}}`` for every kind of
+      :data:`COMM_KINDS`.
+    """
+    return {k: {f: after["by_kind"][k][f] - before["by_kind"][k][f]
+                for f in ("calls", "bytes")} for k in COMM_KINDS}
+
+
+def comm_snapshot(comm: Dict[str, Any]) -> Dict[str, Any]:
+    """A copy of a ``comm`` record that later collectives leave as it
+    is (its ``by_kind`` entries are copied too)."""
+    out = dict(comm)
+    out["by_kind"] = {k: dict(v) for k, v in comm["by_kind"].items()}
+    return out
 
 
 def make_host_mesh(shape: Optional[Tuple[int, ...]] = None,

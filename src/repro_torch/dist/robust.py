@@ -67,6 +67,7 @@ import torch
 from repro_torch.core.attacks import _alie_z, _anti_or_ones, _closed_gamma
 from repro_torch.core.bulyan import coordinate_phase
 from repro_torch.core.pytree import tree_leaves, tree_unflatten
+from repro_torch.device import host_index, host_value
 from repro_torch.dist.mesh import mesh_axis_sizes
 from repro_torch.kernels.pairwise_gram import (finalize_dists,
                                                pairwise_gram_partial,
@@ -527,9 +528,9 @@ def _top_coordinate(means, leaves, shards: _Shards):
     rows = []
     for k, (m, l) in enumerate(zip(means, leaves)):
         a = torch.abs(m.reshape(-1))
-        arg = int(torch.argmax(a))
-        rows.append([float(a[arg]), _to_global(k, arg, l, shards),
-                     float(m.reshape(-1)[arg])])
+        arg = host_index(torch.argmax(a))
+        rows.append([host_value(a[arg]), _to_global(k, arg, l, shards),
+                     host_value(m.reshape(-1)[arg])])
     mine = torch.tensor(rows, dtype=torch.float64)
     every = shards.mesh.all_gather(mine[None], "model", 0)
     best = []
@@ -548,7 +549,7 @@ def _lp_direction(means, leaves, coord, step, shards=None):
     over the concatenated coordinate space in leaf order."""
     d = _coord_count(leaves, shards)
     if coord == "rotate":
-        return (0 if step is None else int(step)) % d, 1.0
+        return (0 if step is None else host_index(step)) % d, 1.0
     if coord == "top":
         if shards is not None:
             return _top_coordinate(means, leaves, shards)
@@ -556,8 +557,8 @@ def _lp_direction(means, leaves, coord, step, shards=None):
         # attacked against its sign (first leaf, then first index, wins)
         flat = [m.reshape(-1) for m in means]
         maxes = torch.stack([torch.max(torch.abs(m)) for m in flat])
-        j = int(torch.argmax(maxes))
-        arg = int(torch.argmax(torch.abs(flat[j])))
+        j = host_index(torch.argmax(maxes))
+        arg = host_index(torch.argmax(torch.abs(flat[j])))
         off = sum(math.prod(l.shape[1:]) for l in leaves[:j])
         return off + arg, -torch.sign(flat[j][arg])
     if isinstance(coord, int) and not 0 <= coord < d:
@@ -666,9 +667,11 @@ def inject_byzantine(tree: Any, f: int, attack: str, generator=None, *,
     leaves = _leaves(tree)
     honest = [l[:n_h] for l in leaves]
     dev = leaves[0].device
-    t = 0 if step is None else int(step)
+    t = 0 if step is None else host_index(step)
     shards = _shards(mesh, specs, len(leaves))
-    if generator is None and attack in ("random", "colluding_majority"):
+    # a meta trace draws without a generator (none lives there)
+    if (generator is None and attack in ("random", "colluding_majority")
+            and dev.type != "meta"):
         generator = torch.Generator(dev).manual_seed(0)
 
     def broadcast(byz_one, leaf):

@@ -51,7 +51,7 @@ import torch
 from repro_torch.agg.specs import AggSpec
 from repro_torch.agg.state import AggState, init_state
 from repro_torch.core.pytree import tree_leaves, tree_map, tree_unflatten
-from repro_torch.device import resolve_device
+from repro_torch.device import host_index, resolve_device
 from repro_torch.dist.mesh import mesh_axis_sizes
 from repro_torch.dist.robust import (distributed_aggregate, inject_byzantine,
                                      resolve_distance_backend)
@@ -337,7 +337,7 @@ def _maybe_attack_logits(stack: torch.Tensor, spec: AggSpec,
     akw.setdefault("gar_name", spec.gar)
     gen = None
     if spec.attack in _RANDOM_ATTACKS:
-        pos_sum = int(torch.as_tensor(pos, dtype=torch.int64).sum())
+        pos_sum = host_index(torch.as_tensor(pos, dtype=torch.int64).sum())
         gen = _attack_generator(spec.seed, pos_sum, stack.device)
     return inject_byzantine({"logits": stack}, spec.f, spec.attack, gen,
                             **akw)["logits"]

@@ -135,7 +135,10 @@ def make_loss_fn(cfg: ModelConfig, impl: str = "auto") -> Callable:
 def _attack_generator(seed: int, step: int,
                       device: torch.device) -> torch.Generator:
     """A generator seeded from ``(seed, step)``: the port's form of the
-    reference's ``fold_in(PRNGKey(seed), step)`` (its stream differs)."""
+    reference's ``fold_in(PRNGKey(seed), step)`` (its stream differs);
+    ``None`` on the ``meta`` device, where a trace draws without one."""
+    if torch.device(device).type == "meta":
+        return None
     return torch.Generator(device).manual_seed(
         (int(seed) * 1_000_003 + int(step)) % (2 ** 63))
 

@@ -15,7 +15,9 @@ the first window winning ties.  It is bounded by reading the stack once
 
 ``bulyan_select`` dispatches on the tensor's device: a CPU tensor takes
 :func:`bulyan_select_plain`, the reference's arithmetic step for step; a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises; a ``meta`` tensor (a
+dry-run) gets an empty result of the kernel's shape and counts the
+launch, building nothing.
 """
 from __future__ import annotations
 
@@ -83,12 +85,16 @@ def bulyan_select(selected: torch.Tensor, f: int, *,
     kw = _plain_block_d(selected, block_d, "bulyan_select")
     if selected.device.type == "cpu":
         return bulyan_select_plain(selected, f, **kw)
-    if selected.device.type != "cuda":
+    if selected.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {selected.device}")
     # the kernel reads rows: a strided stack is copied once, here
     selected = selected.contiguous()
     _check_stack(selected, "bulyan_select")
     out = torch.empty((d,), dtype=torch.float32, device=selected.device)
+    if selected.device.type == "meta":
+        # a dry-run's trace: the kernel's output, counted as its launch
+        _build.count("bulyan_select")
+        return out
     lib = _build.library("bulyan_select")
     fn = (lib.bulyan_select_f32 if selected.dtype == torch.float32
           else lib.bulyan_select_bf16)

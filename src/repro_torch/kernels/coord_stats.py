@@ -13,7 +13,9 @@ and the two ``(d,)`` float writes.
 
 ``coord_stats`` dispatches on the tensor's device: a CPU tensor takes
 :func:`coord_stats_plain`, the reference's arithmetic step for step; a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises; a ``meta`` tensor (a
+dry-run) gets an empty result of the kernel's shape and counts the
+launch, building nothing.
 """
 from __future__ import annotations
 
@@ -84,12 +86,16 @@ def coord_stats(grads: torch.Tensor, f: int, *,
     kw = _plain_block_d(grads, block_d, "coord_stats")
     if grads.device.type == "cpu":
         return coord_stats_plain(grads, f, **kw)
-    if grads.device.type != "cuda":
+    if grads.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {grads.device}")
     grads = grads.contiguous()  # the kernel reads rows: copy a strided stack
     _check_stack(grads, "coord_stats")
     med = torch.empty((d,), dtype=torch.float32, device=grads.device)
     trim = torch.empty((d,), dtype=torch.float32, device=grads.device)
+    if grads.device.type == "meta":
+        # a dry-run's trace: the kernel's outputs, counted as its launch
+        _build.count("coord_stats")
+        return med, trim
     lib = _build.library("coord_stats")
     fn = (lib.coord_stats_f32 if grads.dtype == torch.float32
           else lib.coord_stats_bf16)

@@ -27,7 +27,9 @@ write ``d`` floats plus the ``(n,)`` diagnostics.  Sources:
 
 Every wrapper dispatches on the tensor's device: a CPU tensor takes the
 ``*_plain`` version beside it (the reference's arithmetic, with the same
-masks and tiebreaks), a CUDA tensor launches the kernel or raises.
+masks and tiebreaks), a CUDA tensor launches the kernel or raises, and
+a ``meta`` tensor (the launch harness's dry-run) gets an empty result of
+the kernel's shape and counts the launch, building nothing.
 """
 from __future__ import annotations
 
@@ -94,7 +96,9 @@ def _check_mode_shape(n: int, f: int, mode: str) -> None:
 
 
 def _device_of(x: torch.Tensor) -> str:
-    if x.device.type not in ("cpu", "cuda"):
+    """``"cpu"`` (the plain version), ``"cuda"`` (the kernel) or
+    ``"meta"`` (a dry-run: an empty result, the launch counted)."""
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     return x.device.type
 
@@ -233,6 +237,9 @@ def select_weights(dist2: torch.Tensor, n: int, f: int, mode: str):
                     device=dev)
     sel = torch.empty((1, n), dtype=torch.float32, device=dev)
     scores = torch.empty((1, n), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        _build.count("select_weights")
+        return w, sel, scores
     lib = _build.library("fused_agg")
     _build.check(lib.select_weights_f32(
         dist2.data_ptr(), n, f, _MODE_IDS[mode], w.data_ptr(),
@@ -317,6 +324,9 @@ def fused_coordinate(stack: torch.Tensor, weights: Optional[torch.Tensor],
                              f"{stack.device}, got {tuple(weights.shape)} "
                              f"on {weights.device}")
     out = torch.empty((d,), dtype=torch.float32, device=stack.device)
+    if stack.device.type == "meta":
+        _build.count("fused_coordinate")
+        return out
     lib = _build.library("fused_agg")
     fn = (lib.combine_f32 if stack.dtype == torch.float32
           else lib.combine_bf16)

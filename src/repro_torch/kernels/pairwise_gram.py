@@ -13,7 +13,8 @@ n = 39 the ``n (n + 1) d`` fp32 operations take about half as long.
 ``pairwise_gram_partial`` dispatches on the tensor's device: a CPU
 tensor takes :func:`pairwise_gram_partial_plain`, which repeats the
 reference's per-tile arithmetic; a CUDA tensor launches the kernel or
-raises.
+raises; a ``meta`` tensor (the launch harness's dry-run) gets an empty
+result of the kernel's shape and counts the launch, building nothing.
 """
 from __future__ import annotations
 
@@ -122,19 +123,24 @@ def pairwise_gram_partial(slab: torch.Tensor, *,
     Returns:
       ``(n, n)`` float32 raw partial (see
       :func:`pairwise_gram_partial_plain`).  A CPU tensor takes the plain
-      version; a CUDA tensor launches the kernel or raises.
+      version; a CUDA tensor launches the kernel or raises; a ``meta``
+      tensor (a dry-run) gets an empty result and counts one launch.
     """
     n = slab.shape[0]
     x = slab.reshape(n, -1)
     kw = _plain_block_d(x, block_d, "pairwise_gram_partial")
     if x.device.type == "cpu":
         return pairwise_gram_partial_plain(x, **kw)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     # the kernel reads rows: a strided stack (a transposed leaf, a vmap
     # output with its worker axis moved) is copied once, here
     x = x.contiguous()
     _check_stack(x, "pairwise_gram_partial")
+    if x.device.type == "meta":
+        # a dry-run's trace: the kernel's output, counted as its launch
+        _build.count("pairwise_gram_partial")
+        return torch.empty((n, n), dtype=torch.float32, device="meta")
     d = x.shape[1]
     chunk, n_chunks = _chunking(d)
     n_groups = math.ceil(n_chunks / _GROUP)

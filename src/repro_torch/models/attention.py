@@ -89,8 +89,10 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def _sqrt_d(d: int, device) -> torch.Tensor:
     """``sqrt(d)`` rounded to fp32, as ``jnp.sqrt(d)``."""
-    return torch.sqrt(torch.tensor(float(d), dtype=torch.float32,
-                                   device=device))
+    # torch.full, not torch.tensor: a traced ``meta`` step (the launch
+    # harness's dry-run) cannot build a tensor from host data
+    return torch.sqrt(torch.full((), float(d), dtype=torch.float32,
+                                 device=device))
 
 
 def attention_naive(q, k, v, *, kind: str = "attn", window: int = 0,

@@ -76,7 +76,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
       cfg: the model configuration.
       batch: sequences (the serving engine's slots).
       cache_len: positions of a full attention cache.
-      device: where the caches live (``"cuda"`` raises without a card).
+      device: where the caches live (``"cuda"`` raises without a card;
+        ``"meta"`` gives shapes and dtypes only).
 
     Returns:
       ``{"periods": {"s{j}": ...}, "tail": {"t{t}": ...}}``: period

@@ -19,15 +19,26 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["embed", "ffn", "he_init", "init_embedding", "init_ffn",
-           "init_linear", "init_rmsnorm", "linear", "rmsnorm", "unembed"]
+__all__ = ["MetaGenerator", "embed", "ffn", "he_init", "init_embedding",
+           "init_ffn", "init_linear", "init_rmsnorm", "linear", "rmsnorm",
+           "unembed"]
 
 
 def _dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where weights are built on the
+    ``meta`` device: shapes and dtypes only, nothing drawn (a
+    ``torch.Generator`` cannot live there)."""
+
+    device = torch.device("meta")
+
+
 def _normal(gen: torch.Generator, shape) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.float32, device="meta")
     return torch.randn(tuple(shape), generator=gen, device=gen.device,
                        dtype=torch.float32)
 

@@ -85,7 +85,8 @@ def init_model(key: Union[int, torch.Generator], cfg: ModelConfig,
         reference's weights across with ``repro_torch.interop``.
       cfg: the model configuration.
       device: where the weights live when ``key`` is a seed (``"cuda"``
-        raises when no card is present).
+        raises when no card is present; ``"meta"`` gives the shapes and
+        dtypes without drawing, as the reference's ``eval_shape``).
 
     Returns:
       The nested parameter dict: ``embed``, ``final_norm``,
@@ -95,6 +96,8 @@ def init_model(key: Union[int, torch.Generator], cfg: ModelConfig,
     """
     if isinstance(key, torch.Generator):
         gen = key
+    elif resolve_device(device).type == "meta":
+        gen = layers.MetaGenerator()
     else:
         gen = torch.Generator(resolve_device(device)).manual_seed(int(key))
     dev = gen.device

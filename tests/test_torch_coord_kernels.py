@@ -166,10 +166,14 @@ class TestCoordStats:
             assert torch.equal(a, b)
 
     def test_unsupported_device_raises(self):
+        # ``meta`` has a branch of its own (the launch harness's dry-run,
+        # tests/test_torch_launch_dryrun.py), so the device here is one
+        # the port does not run on at all
+        from torch_launch_cases import Elsewhere
         with pytest.raises(ValueError, match="unsupported device"):
-            coord_stats(torch.zeros((5, 10), device="meta"), 1)
+            coord_stats(Elsewhere((5, 10)), 1)
         with pytest.raises(ValueError, match="unsupported device"):
-            bulyan_select(torch.zeros((5, 10), device="meta"), 1)
+            bulyan_select(Elsewhere((5, 10)), 1)
 
 
 # ---------------------------------------------------------------------------

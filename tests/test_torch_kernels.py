@@ -316,7 +316,11 @@ class TestDispatch:
         assert all(v == 0 for v in _build.LAUNCHES.values())
 
     def test_other_devices_raise(self):
-        t = torch.zeros((5, 8), device="meta")
+        # ``meta`` has a branch of its own (the launch harness's dry-run,
+        # tests/test_torch_launch_dryrun.py): a device the port does not
+        # run on at all
+        from torch_launch_cases import Elsewhere
+        t = Elsewhere((5, 8))
         with pytest.raises(ValueError, match="unsupported device"):
             pairwise_gram_partial(t)
         with pytest.raises(ValueError, match="unsupported device"):

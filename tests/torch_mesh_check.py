@@ -28,6 +28,7 @@ from repro_torch.core.pytree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.dist import robust
 from repro_torch.dist.async_train import (init_async_state,
                                           make_async_train_step)
+from repro_torch.dist.mesh import comm_snapshot
 from repro_torch.dist.sharding import (_spec_leaves, gather_tree,
                                        gram_shardings, model_dim,
                                        param_shardings, shard_tree)
@@ -290,9 +291,14 @@ def llm_rank(mesh, arch: str, layers: Optional[int], n: int, f: int,
       step and leaf ``leaf_windows`` on this rank's slices of the step's
       submissions (CPU), "selected": per step, "launches": per step,
       "seconds": where the rank's time went, "step_ms" (the observer's
-      time taken out), "comm_s", "comm_bytes", "losses", "step_peak_gib"
-      (the card's peak allocation during each counted step), "k1",
-      "step0", "coords"}``.
+      time taken out), "comm_s", "comm_bytes", "comm_kinds" (per step,
+      ``Mesh.comm["by_kind"]``: the calls and result bytes of each kind
+      of collective), "losses", "step_peak_gib" (the card's peak
+      allocation during each counted step), "k1", "step0", "coords"}``.
+      The collectives counted are the step call's own: the counters are
+      zeroed just before it, the step-0 gate's gathers and the K1 probe
+      ran before the counted steps, and the observer moves nothing
+      between ranks.
     """
     dev = mesh.device
     _setup(dev)
@@ -312,8 +318,8 @@ def llm_rank(mesh, arch: str, layers: Optional[int], n: int, f: int,
                            worker_chunk=worker_chunk, template=template,
                            observe=seen)
     out: Dict[str, Any] = {"launches": [], "step_ms": [], "comm_s": [],
-                           "comm_bytes": [], "losses": [], "step_peak_gib": [],
-                           "seconds": {}}
+                           "comm_bytes": [], "comm_kinds": [], "losses": [],
+                           "step_peak_gib": [], "seconds": {}}
     t0 = time.perf_counter()
     _, sub = byzantine_grads(make_loss_fn(cfg), spec, local, batches[0],
                              state["step"], worker_chunk, mesh=mesh,
@@ -347,6 +353,7 @@ def llm_rank(mesh, arch: str, layers: Optional[int], n: int, f: int,
         out["launches"].append(dict(_build.LAUNCHES))
         out["comm_s"].append(mesh.comm["seconds"])
         out["comm_bytes"].append(mesh.comm["bytes"])
+        out["comm_kinds"].append(comm_snapshot(mesh.comm)["by_kind"])
         out["losses"].append(float(m["loss"]))
     out["params"] = _cpu(local)
     out["coords"] = dict(mesh.coords)

@@ -31,7 +31,7 @@ from repro_torch.agg.specs import AggSpec
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.pytree import tree_leaves
 from repro_torch.dist import serve_robust as sr
-from repro_torch.dist.mesh import make_host_mesh
+from repro_torch.dist.mesh import comm_since, comm_snapshot, make_host_mesh
 from repro_torch.dist.robust import resolve_distance_backend
 from repro_torch.dist.sharding import gather_replicas, replica_rows
 from repro_torch.kernels import _build
@@ -87,7 +87,10 @@ def ensemble(cfg, n: int, f: int, seed: int, device) -> Any:
 class _Probe:
     """Wraps an engine's robust steps: per call the launches (counter
     differences), host ms ending in a synchronize, the collectives' time
-    and bytes, and the poisoned replicas' selection weight; per request
+    and bytes and their calls and bytes per kind (``comm_kinds``: the
+    call's own, taken between two snapshots of ``Mesh.comm`` around it,
+    so the probe's own gather of the stack before the call is not in
+    it), and the poisoned replicas' selection weight; per request
     the emitted tokens' top-2 gaps.  ``capture`` keeps the first decode
     step's gathered stack (computed before the call, from the same
     replicas, outside its window) and the aggregate, selection and
@@ -143,7 +146,7 @@ class _Probe:
             _sync(dev)
             self.extra_s += time.perf_counter() - t_probe
             before = dict(_build.LAUNCHES)
-            comm = dict(self.mesh.comm)
+            comm = comm_snapshot(self.mesh.comm)
             t0 = time.perf_counter()
             out = fn(*args)
             _sync(dev)
@@ -156,6 +159,7 @@ class _Probe:
                 "ms": ms,
                 "comm_s": self.mesh.comm["seconds"] - comm["seconds"],
                 "comm_bytes": self.mesh.comm["bytes"] - comm["bytes"],
+                "comm_kinds": comm_since(comm, self.mesh.comm),
                 "byz": float(sel[..., self.n - self.f:].abs().sum())})
             agg = out[0]
             if kind == "admit":
@@ -377,7 +381,8 @@ def serve_rank(mesh, setting: Dict[str, Any]) -> Dict[str, Any]:
         _sync(dev)
         run = {"streams": streams, "gaps": probe.gaps, "calls": probe.calls,
                "wall_s": time.perf_counter() - t0 - probe.extra_s,
-               "launches": dict(_build.LAUNCHES), "comm": dict(mesh.comm),
+               "launches": dict(_build.LAUNCHES),
+               "comm": comm_snapshot(mesh.comm),
                "telemetry": eng.telemetry()}
         run["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                            if dev.type == "cuda" else math.nan)
