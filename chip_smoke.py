@@ -1904,18 +1904,19 @@ LLM_SLICE = 2 ** 25
 LLM_GRAM_TILE = 2 ** 20
 
 
-def llm_batch(np, rt, cfg, step: int, seq: int, n: int = LLM_N):
-    """One step's worker batch, ``(n, 1, seq)`` tokens and labels from
-    ``lm_batches``; the audio and vlm models get seeded frame or patch
-    embeddings as ``extra``."""
-    toks, labs = zip(*(rt["lm_batches"](cfg.vocab_size, 1, seq,
+def llm_batch(np, rt, cfg, step: int, seq: int, n: int = LLM_N,
+              per_worker: int = 1):
+    """One step's worker batch, ``(n, per_worker, seq)`` tokens and
+    labels from ``lm_batches``; the audio and vlm models get seeded frame
+    or patch embeddings as ``extra``."""
+    toks, labs = zip(*(rt["lm_batches"](cfg.vocab_size, per_worker, seq,
                                         step * n + w, seed=7)
                        for w in range(n)))
     batch = {"tokens": np.stack(toks), "labels": np.stack(labs)}
     if cfg.arch_type in ("audio", "vlm"):
         rng = np.random.default_rng(step)
         batch["extra"] = rng.standard_normal(
-            (n, 1, cfg.encoder_seq or cfg.vision_seq, cfg.d_model)
+            (n, per_worker, cfg.encoder_seq or cfg.vision_seq, cfg.d_model)
         ).astype(np.float32)
     return batch
 
@@ -2996,8 +2997,14 @@ def phase_shard_serve(torch, np, rt, smi):
 
 #: 10a: phase 8a's gemma3-1b cut on a (1, 2) mesh; 10b: reduced
 #: llama3.2-3b on a (2, 2) mesh, 8 workers; momentum SGD in both
-MESH_FULL, MESH_REDUCED = (1, 2), (2, 2)
+MESH_FULL, MESH_REDUCED, MESH_POD = (1, 2), (2, 2), (2, 1, 2)
 MESH_ARCH, MESH_N, MESH_STEPS, MESH_LR = "llama3_2_3b", 8, 2, 1e-2
+#: 10b's sequences per worker: the model axis splits the attention by
+#: them (2 over 2 ranks); the pod world's pod axis halves 4 first
+MESH_PER_WORKER, POD_PER_WORKER = 2, 4
+#: 10a's peak allocation per rank when each pass gathered the whole
+#: parameter tree (measured on an H100 80GB HBM3 at 700 W; PERF.md §6)
+MESH_FULL_PEAK_BEFORE_GIB = 20.27
 K1_ONLY = "pairwise_gram_partial"
 
 
@@ -3063,7 +3070,11 @@ def phase_mesh_full(torch, rt, smi):
     on a (1, 2) mesh of two gloo ranks sharing the card: ``bulyan-krum``
     over ``fused`` (``pallas`` under the model axis: K1 on each rank's
     slice of every leaf), ``omniscient_linf`` ("ones"), momentum SGD
-    1e-2, n = 7, f = 1, 3 steps, one worker per ``vmap`` pass."""
+    1e-2, n = 7, f = 1, 3 steps; each worker's forward and backward
+    split over the model axis (one sequence per worker, so each rank
+    attends for half of its queries), one worker per pass.  The peak
+    allocation per rank must stay below the last run's with the whole
+    tree gathered."""
     import dataclasses
     import numpy as np
     mc, cmp = rt["mesh_check"], rt["compare"]
@@ -3140,13 +3151,19 @@ def phase_mesh_full(torch, rt, smi):
           f"K1 {LLM_LEAVES}, select / K2 / K3 / K4 / K5 0; losses "
           f"{[round(v, 5) for v in res[0]['losses']]}", flush=True)
     for r in res:
+        peak = max(r["step_peak_gib"])
         print(f"  10a rank {r['coords']}: ms per step "
               f"{[round(v, 1) for v in r['step_ms']]} (median "
               f"{r['median_step_ms']:.1f}), in collectives "
               f"{[round(v * 1e3, 1) for v in r['comm_s']]} ms "
               f"({r['comm_bytes'][-1] / 2 ** 30:.2f} GiB of results per "
-              f"step), peak {max(r['step_peak_gib']):.1f} GiB during a "
-              f"step ({smi})", flush=True)
+              f"step), peak {peak:.2f} GiB during a step ({smi})",
+              flush=True)
+        print(f"  10a rank {r['coords']} collectives per step: "
+              f"{kinds_line(r['comm_kinds'][-1])}", flush=True)
+        expect(peak < MESH_FULL_PEAK_BEFORE_GIB, f"10a rank {r['coords']}: "
+               f"peak {peak:.2f} GiB, not below the whole-tree step's "
+               f"{MESH_FULL_PEAK_BEFORE_GIB} GiB")
     for r in res:
         sec = r["seconds"]
         print(f"  10a rank {r['coords']} seconds: step 0's submissions "
@@ -3195,21 +3212,27 @@ def stack_windows(torch, rt, cmp, leaves, f: int):
             for x in leaves]
 
 
-def phase_mesh_reduced(torch, rt):
-    """10b: reduced llama3.2-3b on a (2, 2) mesh of four gloo ranks
-    sharing the card, n = 8, f = 1: 2 synchronous steps, 2 asynchronous
-    steps at tau = 2 (``stale-bulyan-krum``) and at tau = 0, each against
-    the single-device step, exact launches per step."""
+def phase_mesh_reduced(torch, rt, smi):
+    """10b: reduced llama3.2-3b with ``attn_shard="batch"`` on a (2, 2)
+    mesh of four gloo ranks sharing the card, n = 8, f = 1, two
+    sequences per worker (the model axis splits each attention by
+    them): 2 synchronous steps, 2 asynchronous steps at tau = 2
+    (``stale-bulyan-krum``) and at tau = 0, each against the
+    single-device step, exact launches per step; then one synchronous
+    step on a (2, 1, 2) ``("pod", "data", "model")`` mesh with four
+    sequences per worker (``pod`` halves them), against one device."""
+    import dataclasses
     import numpy as np
     mc, cmp = rt["mesh_check"], rt["compare"]
-    cfg = rt["get_reduced"](MESH_ARCH)
-    batches = [llm_batch(np, rt, cfg, t, 64, MESH_N)
+    cfg = dataclasses.replace(rt["get_reduced"](MESH_ARCH),
+                              attn_shard="batch")
+    batches = [llm_batch(np, rt, cfg, t, 64, MESH_N, MESH_PER_WORKER)
                for t in range(MESH_STEPS)]
     t0 = time.perf_counter()
     res = rt["run_on_mesh"](
         mc.reduced_rank, MESH_REDUCED, args=(MESH_ARCH, MESH_N, LLM_F,
                                              batches, MESH_STEPS, MESH_LR,
-                                             1),
+                                             1, "batch"),
         device="cuda", backend="gloo", timeout=600)
     wall = time.perf_counter() - t0
     n_leaves = len(rt["tree_leaves"](res[0]["sync"][0]["params"]))
@@ -3252,13 +3275,61 @@ def phase_mesh_reduced(torch, rt):
     expect(tied <= 2e-3 * sum(x.numel() for x in init),
            f"10b: {tied:,} window ties")
     m = res[0]["async"][-1]["metrics"]
-    print(f"  ok  10b {cfg.name} on (2, 2), n = {MESH_N}: synchronous and "
-          f"tau = 2 steps against the single-device ones at {worst:.3f} of "
-          f"the limit ({tied} window-tie coordinates let off), tau = 0 == "
-          f"synchronous bit for bit, launches K1 {n_leaves} per step and "
-          f"rank (select / K2 / K3 / K4 / K5 0); tau = 2 step 1 delivered "
-          f"{m['delivered']:.0f}, staleness max {m['staleness_max']:.0f}; "
-          f"{wall:.1f} s", flush=True)
+    print(f"  ok  10b {cfg.name} on (2, 2), n = {MESH_N}, "
+          f"{MESH_PER_WORKER} sequences per worker (batch-split attention):"
+          f" synchronous and tau = 2 steps against the single-device ones "
+          f"at {worst:.3f} of the limit ({tied} window-tie coordinates let "
+          f"off), tau = 0 == synchronous bit for bit, launches K1 "
+          f"{n_leaves} per step and rank (select / K2 / K3 / K4 / K5 0); "
+          f"tau = 2 step 1 delivered {m['delivered']:.0f}, staleness max "
+          f"{m['staleness_max']:.0f}; {wall:.1f} s", flush=True)
+    for r in res:
+        row = r["sync"][-1]
+        print(f"  10b rank {r['coords']} synchronous step: "
+              f"{row['ms']:.1f} ms, {kinds_line(row['comm_kinds'])} "
+              f"({smi})", flush=True)
+    phase_mesh_pod(torch, rt, cfg, spec, smi)
+
+
+def phase_mesh_pod(torch, rt, cfg, spec, smi):
+    """10b's (2, 1, 2) world: one synchronous step of four gloo ranks,
+    ``pod`` splitting each worker's 4 sequences, ``model`` each worker's
+    forward, against the single-device step on the same batch under the
+    LLM rule (window ties let off), exact launches."""
+    import numpy as np
+    mc, cmp = rt["mesh_check"], rt["compare"]
+    batch = llm_batch(np, rt, cfg, 0, 64, MESH_N, POD_PER_WORKER)
+    t0 = time.perf_counter()
+    res = rt["run_on_mesh"](mc.pod_rank, MESH_POD, args=(
+        MESH_ARCH, MESH_N, LLM_F, batch, MESH_LR, 1), device="cuda",
+        backend="gloo", timeout=600)
+    wall = time.perf_counter() - t0
+    n_leaves = len(rt["tree_leaves"](res[0]["params"]))
+    for r in res:
+        expect_launches(r["launches"], per_step({K1_ONLY: n_leaves}),
+                        f"10b pod rank {r['coords']}")
+        for a, b in zip(rt["tree_leaves"](r["params"]),
+                        rt["tree_leaves"](res[0]["params"])):
+            expect(torch.equal(a, b), "10b pod: ranks differ")
+    init, rows = single_device_run(torch, rt, cfg, spec, [batch], 1)
+    after, stack, _ = rows[0]
+    ties = cmp.let_off(
+        [stack_windows(torch, rt, cmp, rt["tree_leaves"](res[0]["sub"]),
+                       LLM_F)],
+        [stack_windows(torch, rt, cmp, stack, LLM_F)])
+    tied = sum(int(x.sum()) for x in ties)
+    expect(tied <= 2e-3 * sum(x.numel() for x in init),
+           f"10b pod: {tied:,} window ties")
+    worst = hold_run(torch, cmp, rt["tree_leaves"](res[0]["params"]), after,
+                     init, 1, ties, "10b pod step")
+    print(f"  ok  10b {cfg.name} on {MESH_POD} (pod, data, model), n = "
+          f"{MESH_N}, {POD_PER_WORKER} sequences per worker: the step "
+          f"against the single-device one at {worst:.3f} of the limit "
+          f"({tied} window-tie coordinates let off), launches K1 "
+          f"{n_leaves} per rank; {wall:.1f} s", flush=True)
+    for r in res:
+        print(f"  10b pod rank {r['coords']}: {r['ms']:.1f} ms, "
+              f"{kinds_line(r['comm_kinds'])} ({smi})", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3287,7 +3358,12 @@ DRYRUN_CASES = (
     ("gemma3-1b train_4k full width", ["--arch", "gemma3-1b", "--shape",
                                        "train_4k", "--distance-backend",
                                        "fused"]),
+    ("gemma3-1b train_4k full width multi-pod", [
+        "--arch", "gemma3-1b", "--shape", "train_4k", "--distance-backend",
+        "fused", "--multi-pod"]),
 )
+#: the split forward's bounds on the full-width train step per rank
+FULL_WIDTH_BYTES, FULL_WIDTH_USEFUL = 64 * 2 ** 30, 0.4
 #: the artifact keys the reference's tests and ``summarize`` read
 DRYRUN_KEYS = ("mesh", "multi_pod", "gar", "memory_analysis",
                "cost_analysis", "collectives", "top_collective_ops",
@@ -3358,8 +3434,30 @@ def phase_dryrun():
            and serve["serve_replicas"] == 7, "12a: the serve-gar record")
     expect(recs["mamba2-130m async"]["async_tau"] == 3, "12a: async_tau")
     full = recs["gemma3-1b train_4k full width"]
-    expect(full["kernel_launches"] == {K1_ONLY: LLM_LEAVES},
-           f"12a full width: launches {full['kernel_launches']}")
+    multi = recs["gemma3-1b train_4k full width multi-pod"]
+    for name, rec in (("16x16", full), ("2x16x16", multi)):
+        mem = rec["memory_analysis"]
+        held = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        useful = rec["roofline"]["useful_flops_ratio"]
+        expect(rec["kernel_launches"] == {K1_ONLY: LLM_LEAVES},
+               f"12a full width {name}: launches {rec['kernel_launches']}")
+        expect(held <= FULL_WIDTH_BYTES and useful >= FULL_WIDTH_USEFUL,
+               f"12a full width {name}: arguments + temp {held:,} B, "
+               f"useful FLOPs ratio {useful}")
+        leaves = sorted({k.split(":", 1)[1] for k in rec["param_gathers"]})
+        expect(all(k.startswith("model:periods/") and k.endswith(
+            ("/ln/scale", "/ln_f/scale")) for k in rec["param_gathers"]),
+               f"12a full width {name}: leaves gathered {leaves}")
+        print(f"  12a gemma3-1b train_4k full width on {name}: "
+              f"{rec['cost_analysis']['flops']:.4g} FLOPs per rank, "
+              f"arguments + temp {held / 2 ** 30:.2f} GiB, useful FLOPs "
+              f"ratio {useful:.4f}; parameter leaves all-gathered over "
+              f"model: {len(leaves)} period norm scales, each "
+              f"{sorted(set(rec['param_gathers'].values()))} times",
+              flush=True)
+    half = multi["cost_analysis"]["flops"] / full["cost_analysis"]["flops"]
+    expect(abs(half - 0.5) <= 0.05, f"12a: multi-pod FLOPs per rank "
+           f"{half:.4f} of the single pod's")
     print(f"  12a: {len(recs)} dry-runs in {wall:.1f} s (in parallel; the "
           f"roofline is H100 SXM data-sheet figures, an estimate)",
           flush=True)
@@ -3675,7 +3773,7 @@ def main() -> int:
           "card)", flush=True)
     t10 = time.perf_counter()
     mesh = phase_mesh_full(torch, rt, smi)
-    phase_mesh_reduced(torch, rt)
+    phase_mesh_reduced(torch, rt, smi)
     print(f"  phase 10 took {time.perf_counter() - t10:.1f} s ({smi})",
           flush=True)
 

@@ -11,6 +11,10 @@
                   ``(n, n)`` partials all-reduced over ``model``), the
                   distance-backend dispatch, the windowed coordinate
                   phase, per-leaf attacks
+  tensor_parallel.py  the ``model`` axis inside one worker: the split
+                  forward's collectives as autograd Functions, the
+                  ``Shard`` the models read, the vocabulary-parallel
+                  cross-entropy
   train.py        the Byzantine train step over the model zoo, on one
                   device or on every rank of a mesh
   async_train.py  the gradient bus and the asynchronous train step

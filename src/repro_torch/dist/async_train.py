@@ -255,7 +255,8 @@ def make_async_train_step(cfg, spec, optimizer, impl: str = "auto",
       impl: attention path of the forward.
       mesh: ``None`` or this rank's mesh, as in
         ``repro_torch.dist.train.make_train_step``.
-      worker_chunk: workers per ``vmap`` pass.
+      worker_chunk: workers per ``vmap`` pass (under a mesh with a
+        ``model`` or ``pod`` axis ``None`` or 1).
       template: with a mesh, the global parameter tree (shapes only).
 
     Returns:
@@ -273,7 +274,8 @@ def make_async_train_step(cfg, spec, optimizer, impl: str = "auto",
     rule = spec.rule()
     stateful = rule.stateful
     reputed = "reputation" in rule.state_fields
-    layout = None if mesh is None else _MeshLayout(mesh, template)
+    layout = (None if mesh is None
+              else _MeshLayout(mesh, template, worker_chunk))
 
     def step(params, opt_state, batch, agg_state):
         n = batch["tokens"].shape[0]
@@ -285,7 +287,7 @@ def make_async_train_step(cfg, spec, optimizer, impl: str = "auto",
         if attacked and spec.attack in ("stale_replay", "slow_drift"):
             prev = tree_unflatten(agg_state.bus.grads, [
                 l[n_h:] for l in tree_leaves(agg_state.bus.grads)])
-        losses, grads, full = _submissions(
+        losses, grads = _submissions(
             loss_fn, spec, params, batch, opt_state["step"], t,
             worker_chunk, layout, prev=prev)
         versions = agg_state.bus.versions
@@ -317,7 +319,7 @@ def make_async_train_step(cfg, spec, optimizer, impl: str = "auto",
             # the clean-batch scores read the slot stack, what was
             # aggregated
             new_state, agg, step_scale = _reputation_tail(
-                spec, loss_fn, full, bus.grads, agg, res, agg_state,
+                spec, loss_fn, params, bus.grads, agg, res, agg_state,
                 new_state, layout)
         staleness = t - bus.versions
         extra = async_extras(staleness, staleness_excess(bus, t, tau),

@@ -11,10 +11,14 @@ axis) with the collectives the sharded runtime needs.  Axis convention
 
   data   Byzantine workers: each data slice computes its workers'
          gradients; robust aggregation reduces over this axis
-  model  the coordinates of every gradient and parameter leaf
-  pod    optional outermost axis (3-d meshes); the port's ranks along
-         it compute the same thing (the reference splits each worker's
-         batch over it)
+  model  the coordinates of every gradient and parameter leaf, and
+         tensor parallelism within one worker's replica: the train
+         step's forward and backward run on each rank's slices
+         (``repro_torch.dist.tensor_parallel``)
+  pod    optional outermost axis (3-d meshes): extra batch parallelism
+         inside each worker; the train step splits each worker's batch
+         over it where it divides (the reference's ``batch_pspec``) and
+         takes the mean of the gradient slices over it
 
 The backend is explicit.  ``gloo`` carries CPU tensors, and CUDA tensors
 by staging them through host memory (the only way several ranks can

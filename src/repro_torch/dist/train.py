@@ -25,14 +25,27 @@ position, where the reference partitions one program with GSPMD):
 
   * parameters and optimizer state are stored as each rank's slices in
     the ``param_shardings`` layout of ``template`` (the global parameter
-    tree); each step all-gathers them over ``model`` for the forward and
-    backward (a tensor-parallel forward is not ported);
-  * rank ``(i, j)`` computes the gradients of its ``data`` slice's
+    tree), and no rank ever gathers the tree: each worker's forward and
+    backward run on the slices, split over ``model``
+    (``repro_torch.dist.tensor_parallel``; ``forward(shard=)``), one
+    worker per ``torch.autograd`` pass with each period and tail layer
+    recomputed in the backward (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``; ``torch.func.vmap`` passes no
+    collective, so ``worker_chunk`` above 1 is refused).  A mesh with
+    neither a ``model`` nor a ``pod`` axis above 1 runs the one-device
+    ``vmap`` passes on each rank's workers, bit for bit one device's;
+  * rank ``(p, i, j)`` computes the gradients of its ``data`` slice's
     workers (every worker when the axis does not divide n, the
-    reference's replicate rule) and keeps only its ``model`` slice of
-    each, in the ``gram_pspec`` layout, after each ``worker_chunk``
-    pass; the slices are then all-gathered over ``data``, so every rank
-    holds all n rows of its coordinates;
+    reference's replicate rule) on its ``pod`` slice of each worker's
+    batch when ``pod`` divides it (and the model routes no tokens
+    across the batch, as an MoE layer's capacity does), else on the
+    whole batch (the reference's replicate rule); the gradient slices
+    and the loss are the mean over ``pod`` (one all-reduce, times the
+    rounded reciprocal of its size).  The gradients come out in the
+    parameters' slices, which are the ``gram_pspec`` layout except for
+    the 1-D leaves, whole in one and split in the other (cut on the
+    way in, gathered on the way out); the slices are then all-gathered
+    over ``data``, so every rank holds all n rows of its coordinates;
   * the attack, the aggregation (K1 per local slice under ``pallas``)
     and the metrics' reductions over coordinates are all-reduced over
     ``model`` (``repro_torch.dist.robust``); the aggregate goes back to
@@ -58,10 +71,10 @@ from repro_torch.core.pytree import (sum_in_order, tree_leaves, tree_map,
                                      tree_unflatten)
 from repro_torch.dist.robust import (_shards, distributed_aggregate,
                                      inject_byzantine)
-from repro_torch.dist.sharding import (_spec_leaves, gather_tree,
-                                       gram_shardings, local_shard,
+from repro_torch.dist.sharding import (_spec_leaves, gram_shardings,
                                        local_shape, model_dim,
                                        param_shardings, replica_rows)
+from repro_torch.dist.tensor_parallel import model_shard, vocab_parallel_nll
 from repro_torch.models import forward
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.schema import core_metrics, global_norm, selection_weight
@@ -120,15 +133,29 @@ def _state_template(params, n_workers: int, mesh):
 def make_loss_fn(cfg: ModelConfig, impl: str = "auto") -> Callable:
     """Token-level cross-entropy (fp32 logsumexp) plus the model's aux
     loss (MoE load balancing): ``loss_fn(params, tokens, labels,
-    extra=None)``."""
+    extra=None, shard=None)``.
 
-    def loss_fn(params, tokens, labels, extra=None):
-        logits, aux = forward(params, cfg, tokens, extra, impl=impl)
+    Under a ``shard`` (``repro_torch.dist.tensor_parallel.Shard``) the
+    forward runs on one rank's slices and, when the output table splits
+    on the vocabulary, the cross-entropy is vocabulary-parallel
+    (``vocab_parallel_nll``).  The function's ``splits_batch`` attribute
+    says whether its value over a batch is the mean of its values over
+    equal parts of it (no MoE layer, whose capacity counts the whole
+    batch's tokens): the sharded step splits a worker's batch over
+    ``pod`` only then."""
+
+    def loss_fn(params, tokens, labels, extra=None, shard=None):
+        logits, aux = forward(params, cfg, tokens, extra, impl=impl,
+                              shard=shard)
         logits = logits.to(torch.float32)
+        if logits.shape[-1] != cfg.vocab_size:
+            return torch.mean(vocab_parallel_nll(logits, labels,
+                                                 shard)) + aux
         logz = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
         return torch.mean(logz - ll) + aux
 
+    loss_fn.splits_batch = cfg.moe_experts == 0
     return loss_fn
 
 
@@ -152,27 +179,19 @@ def _batch_tensors(batch: dict, device: torch.device):
     return args
 
 
-def _per_worker(loss_fn: Callable, params, args, worker_chunk, keep=None):
+def _per_worker(loss_fn: Callable, params, args, worker_chunk):
     """``(losses (n,), gradient tree of (n, *dims) leaves)``: vmap over
-    the worker axis, ``worker_chunk`` workers per pass; ``keep(k, g)``
-    (under a mesh) cuts each pass's leaf ``k`` to the slice kept."""
+    the worker axis, ``worker_chunk`` workers per pass."""
     vg = torch.func.vmap(torch.func.grad_and_value(loss_fn),
                          in_dims=(None,) + (0,) * len(args))
     n = args[0].shape[0]
     chunk = n if worker_chunk is None else max(1, int(worker_chunk))
     if chunk >= n:
         grads, losses = vg(params, *args)
-        if keep is not None:
-            grads = tree_unflatten(grads, [
-                keep(k, g).clone(memory_format=torch.contiguous_format)
-                for k, g in enumerate(tree_leaves(grads))])
         return losses, grads
     stacks, losses = None, []
     for s in range(0, n, chunk):
         g, l = vg(params, *(a[s:s + chunk] for a in args))
-        if keep is not None:
-            g = tree_unflatten(g, [keep(k, x) for k, x in
-                                   enumerate(tree_leaves(g))])
         if stacks is None:
             stacks = tree_map(lambda x: torch.empty(
                 (n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device),
@@ -186,29 +205,48 @@ def _per_worker(loss_fn: Callable, params, args, worker_chunk, keep=None):
 
 class _MeshLayout:
     """One rank's layout of the sharded step: the parameters' and the
-    gradients' specs (from the global ``template``) and the moves between
-    them."""
+    gradients' specs (from the global ``template``), the model's
+    :class:`repro_torch.dist.tensor_parallel.Shard`, the per-worker
+    passes and the moves between the two layouts."""
 
-    def __init__(self, mesh, template):
+    def __init__(self, mesh, template, worker_chunk=None):
         if template is None:
             raise ValueError(
                 "mesh= needs template=: the global parameter tree (only "
                 "shapes are read), whose param_shardings / gram_pspec "
                 "layouts the ranks' slices follow")
+        # a model or pod axis puts collectives inside the worker's pass
+        self.split_forward = mesh.size("model") > 1 or mesh.size("pod") > 1
+        if (self.split_forward and worker_chunk is not None
+                and int(worker_chunk) > 1):
+            raise ValueError(
+                f"worker_chunk={worker_chunk} with mesh=: the sharded step "
+                f"runs one worker per pass (its collectives do not pass "
+                f"through torch.func.vmap)")
         self.mesh = mesh
         self.param_specs = param_shardings(template, mesh)
         self.gram_specs = gram_shardings(template, mesh)
         self.pspecs = _spec_leaves(self.param_specs)
         self.gspecs = _spec_leaves(self.gram_specs)
         self.shards = _shards(mesh, self.gram_specs, len(self.gspecs))
+        self.shard = model_shard(mesh, self.param_specs)
+        # per leaf: its model dim in the parameters' layout and in the
+        # gradients' (without the worker axis)
+        self.dims = [(model_dim(ps), None if model_dim(gs) is None
+                      else model_dim(gs) - 1)
+                     for ps, gs in zip(self.pspecs, self.gspecs)]
 
-    def whole(self, params):
-        """The whole parameter tree from this rank's slices."""
-        return gather_tree(params, self.param_specs, self.mesh)
-
-    def keep(self, k: int, g: torch.Tensor) -> torch.Tensor:
-        """This rank's ``gram_pspec`` slice of a pass's gradient leaf."""
-        return local_shard(g, self.gspecs[k], self.mesh)
+    def _move(self, a: torch.Tensor, src, dst) -> torch.Tensor:
+        """A slice split over ``model`` on ``src`` as the slice split on
+        ``dst`` (``None``: whole)."""
+        if src == dst:
+            return a
+        if src is not None:
+            a = self.mesh.all_gather(a, "model", src)
+        if dst is not None:
+            w = a.shape[dst] // self.mesh.size("model")
+            a = a.narrow(dst, self.mesh.index("model") * w, w)
+        return a
 
     def rows(self, n: int) -> Tuple[slice, bool]:
         """This rank's workers and whether ``data`` splits them (the
@@ -227,41 +265,83 @@ class _MeshLayout:
             torch.sum(x.to(torch.float32) * x.to(torch.float32))
             for x in tree_leaves(tree)]))
 
-    def grads_like(self, tree):
-        """A per-worker-shaped tree (no worker axis) cut to this rank's
-        ``gram_pspec`` slices."""
-        return tree_unflatten(tree, [
-            self.keep(k, x[None])[0] for k, x in
-            enumerate(tree_leaves(tree))])
-
     def to_params(self, agg):
         """The aggregate (``gram_pspec`` slices without the worker axis)
         in the parameters' layout: gathered over ``model`` and cut again
         where the two rules split different dims."""
-        out = []
-        for a, gs, ps in zip(tree_leaves(agg), self.gspecs, self.pspecs):
-            gd = model_dim(gs)
-            gd = None if gd is None else gd - 1
-            pd = model_dim(ps)
-            if gd != pd:
-                if gd is not None:
-                    a = self.mesh.all_gather(a, "model", gd)
-                if pd is not None:
-                    w = a.shape[pd] // self.mesh.size("model")
-                    a = a.narrow(pd, self.mesh.index("model") * w, w)
-            out.append(a)
-        return tree_unflatten(agg, out)
+        return tree_unflatten(agg, [
+            self._move(a, gd, pd)
+            for a, (pd, gd) in zip(tree_leaves(agg), self.dims)])
 
-    def submissions(self, loss_fn, full, args, worker_chunk):
+    def worker_grads(self, loss_fn, params, args):
+        """``(loss, gradient slices in the gram_pspec layout)`` of one
+        worker whose batch is ``args`` (each ``(B, ...)``), by one
+        ``torch.autograd`` pass over the split forward; the mean over
+        ``pod`` when ``pod`` splits the batch."""
+        mesh = self.mesh
+        pod = mesh.size("pod")
+        b = args[0].shape[0]
+        split = (pod > 1 and b % pod == 0
+                 and getattr(loss_fn, "splits_batch", False))
+        if split:
+            args = [a.narrow(0, mesh.index("pod") * (b // pod), b // pod)
+                    for a in args]
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss = loss_fn(tree_unflatten(params, leaves), *args,
+                       shard=self.shard)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [self._move(torch.zeros_like(p) if g is None else g, pd, gd)
+                 for p, g, (pd, gd) in zip(leaves, grads, self.dims)]
+        loss = loss.detach()
+        del leaves
+        if split:
+            loss, grads = self._pod_mean(loss, grads)
+        return loss, grads
+
+    def _passes(self, loss_fn, params, args):
+        """:meth:`worker_grads` of each worker of ``args``, stacked."""
+        count = args[0].shape[0]
+        losses, stacks = [], None
+        for w in range(count):
+            loss, grads = self.worker_grads(loss_fn, params,
+                                            [a[w] for a in args])
+            if stacks is None:
+                stacks = [torch.empty((count,) + tuple(g.shape),
+                                      dtype=g.dtype, device=g.device)
+                          for g in grads]
+            for dst, g in zip(stacks, grads):
+                dst[w].copy_(g)
+            losses.append(loss)
+            del grads
+        return torch.stack(losses), tree_unflatten(params, stacks)
+
+    def _pod_mean(self, loss, grads):
+        """The mean over ``pod`` of a worker's loss and gradient slices:
+        one fp32 all-reduce, times the rounded reciprocal of the axis'
+        size."""
+        flat = torch.cat([loss.reshape(1).to(torch.float32)] + [
+            g.reshape(-1).to(torch.float32) for g in grads])
+        inv = torch.full((), 1.0 / self.mesh.size("pod"),
+                         dtype=torch.float32, device=flat.device)
+        flat = self.mesh.all_reduce(flat, "pod") * inv
+        parts = torch.split(flat, [1] + [g.numel() for g in grads])
+        return (parts[0].reshape(()).to(loss.dtype),
+                [x.reshape(g.shape).to(g.dtype)
+                 for x, g in zip(parts[1:], grads)])
+
+    def submissions(self, loss_fn, params, args, worker_chunk):
         """``(losses (n,), gradient slices (n, *local))``: this rank's
-        workers' gradients cut to its ``model`` slices pass by pass, then
-        gathered over ``data``; replicated leaves are sent from the
-        rank at ``model`` index 0, so they are the same on every rank."""
+        workers' gradients pass by pass (the one-device ``vmap`` passes
+        when neither ``model`` nor ``pod`` splits a worker), then
+        gathered over ``data``; replicated leaves are sent from the rank
+        at ``model`` index 0, so they are the same on every rank."""
         mesh = self.mesh
         rows, split = self.rows(args[0].shape[0])
-        losses, grads = _per_worker(loss_fn, full,
-                                    [a[rows] for a in args], worker_chunk,
-                                    keep=self.keep)
+        mine = [a[rows] for a in args]
+        if self.split_forward:
+            losses, grads = self._passes(loss_fn, params, mine)
+        else:
+            losses, grads = _per_worker(loss_fn, params, mine, worker_chunk)
         if split:
             losses = mesh.all_gather(losses, "data", 0)
             grads = tree_map(lambda g: mesh.all_gather(g, "data", 0), grads)
@@ -275,21 +355,17 @@ class _MeshLayout:
 def _submissions(loss_fn: Callable, spec: AggSpec, params, batch: dict,
                  gen_step: int, attack_step: int, worker_chunk,
                  layout: Optional[_MeshLayout], prev=None):
-    """``(losses, submissions, whole parameters)`` of one step: every
-    worker's gradient, then the attack on the last ``f`` rows (its
-    generator from ``gen_step``, its ``step`` ``attack_step``; ``prev``
-    for the delay attacks)."""
-    if layout is None:
-        full = params
-        dev = tree_leaves(params)[0].device
-    else:
-        full = layout.whole(params)
-        dev = layout.mesh.device
+    """``(losses, submissions)`` of one step: every worker's gradient,
+    then the attack on the last ``f`` rows (its generator from
+    ``gen_step``, its ``step`` ``attack_step``; ``prev`` for the delay
+    attacks)."""
+    dev = (tree_leaves(params)[0].device if layout is None
+           else layout.mesh.device)
     args = _batch_tensors(batch, dev)
     if layout is None:
-        losses, grads = _per_worker(loss_fn, full, args, worker_chunk)
+        losses, grads = _per_worker(loss_fn, params, args, worker_chunk)
     else:
-        losses, grads = layout.submissions(loss_fn, full, args,
+        losses, grads = layout.submissions(loss_fn, params, args,
                                            worker_chunk)
     if spec.attack != "none" and spec.f > 0:
         akw = dict(spec.attack_kwargs)
@@ -302,7 +378,7 @@ def _submissions(loss_fn: Callable, spec: AggSpec, params, batch: dict,
                if spec.attack in _RANDOM_ATTACKS else None)
         grads = inject_byzantine(grads, spec.f, spec.attack, gen,
                                  step=attack_step, **akw)
-    return losses, grads, full
+    return losses, grads
 
 
 def byzantine_grads(loss_fn: Callable, spec: AggSpec, params, batch: dict,
@@ -322,7 +398,9 @@ def byzantine_grads(loss_fn: Callable, spec: AggSpec, params, batch: dict,
         whole batch, on every rank).
       step: the optimizer's step (the attacks that read it, and the
         seed of a random attack's generator).
-      worker_chunk: workers per ``vmap`` pass (``None``: all at once).
+      worker_chunk: workers per ``vmap`` pass (``None``: all at once;
+        under a mesh with a ``model`` or ``pod`` axis ``None`` or 1, one
+        worker per pass).
       mesh: the mesh of the sharded step, or ``None``.
       template: under a mesh, the global parameter tree (shapes only).
 
@@ -330,10 +408,10 @@ def byzantine_grads(loss_fn: Callable, spec: AggSpec, params, batch: dict,
       ``(losses (n,), gradient tree)`` on the parameters' device; under
       a mesh every worker's row of this rank's ``gram_pspec`` slices.
     """
-    layout = None if mesh is None else _MeshLayout(mesh, template)
-    losses, grads, _ = _submissions(loss_fn, spec, params, batch, step,
-                                    step, worker_chunk, layout)
-    return losses, grads
+    layout = (None if mesh is None
+              else _MeshLayout(mesh, template, worker_chunk))
+    return _submissions(loss_fn, spec, params, batch, step, step,
+                        worker_chunk, layout)
 
 
 def make_train_step(cfg: ModelConfig, spec: DistByzantineSpec,
@@ -366,7 +444,9 @@ def make_train_step(cfg: ModelConfig, spec: DistByzantineSpec,
         whole batch on every rank, and a stateful ``agg_state`` this
         rank's slices (``init_agg_state(..., mesh=mesh)``).
       worker_chunk: workers per ``vmap`` pass of the per-worker
-        gradients (``None``: all at once; see the module docstring).
+        gradients (``None``: all at once; see the module docstring);
+        under a mesh with a ``model`` or ``pod`` axis ``None`` or 1
+        (``ValueError`` above).
       template: with a mesh, the global parameter tree whose layouts the
         slices follow (only shapes are read: ``"meta"`` tensors work).
       observe: ``None``, or ``observe(submissions, result)``, called in
@@ -388,15 +468,16 @@ def make_train_step(cfg: ModelConfig, spec: DistByzantineSpec,
     rule = spec.rule()
     stateful = rule.stateful
     reputed = "reputation" in rule.state_fields
-    layout = None if mesh is None else _MeshLayout(mesh, template)
+    layout = (None if mesh is None
+              else _MeshLayout(mesh, template, worker_chunk))
 
     def run_step(params, opt_state, batch, agg_state):
         n = batch["tokens"].shape[0]
         spec.validate(n, distributed=True)
         n_h = n - spec.f
         t = opt_state["step"]
-        losses, grads, full = _submissions(loss_fn, spec, params, batch, t,
-                                           t, worker_chunk, layout)
+        losses, grads = _submissions(loss_fn, spec, params, batch, t, t,
+                                     worker_chunk, layout)
         out = distributed_aggregate(
             grads, spec.f_declared, spec.effective_gar,
             agg_dtype=spec.agg_dtype,
@@ -411,7 +492,7 @@ def make_train_step(cfg: ModelConfig, spec: DistByzantineSpec,
         step_scale = None
         if reputed:
             new_agg_state, agg, step_scale = _reputation_tail(
-                spec, loss_fn, full, grads, agg, res, agg_state,
+                spec, loss_fn, params, grads, agg, res, agg_state,
                 new_agg_state, layout)
         return _finish(optimizer, params, opt_state, agg, grads, losses,
                        res, n_h, step_scale, layout) + (new_agg_state,)
@@ -425,11 +506,13 @@ def make_train_step(cfg: ModelConfig, spec: DistByzantineSpec,
     return step
 
 
-def _reputation_tail(spec: AggSpec, loss_fn, full, grads, agg, res,
+def _reputation_tail(spec: AggSpec, loss_fn, params, grads, agg, res,
                      agg_state, new_agg_state, layout):
     """``reputation-*``'s step tail: the clean-batch scores (with
-    ``spec.aux_batch``) and the trust-scaled aggregate (with
-    ``spec.rep_lr``).  Returns ``(state, aggregate, step_scale)``."""
+    ``spec.aux_batch``, its gradient at ``params``: under a mesh this
+    rank's slices, through the split forward) and the trust-scaled
+    aggregate (with ``spec.rep_lr``).  Returns ``(state, aggregate,
+    step_scale)``."""
     if spec.aux_batch is not None:
         # ByGARS proper: score the raw submissions against the clean
         # auxiliary gradient, the one signal a colluding majority cannot
@@ -437,11 +520,12 @@ def _reputation_tail(spec: AggSpec, loss_fn, full, grads, agg, res,
         dev = tree_leaves(grads)[0].device
         aux = [torch.as_tensor(a, device=dev) for a in spec.aux_batch]
         aux[1] = aux[1].long()
-        clean = torch.func.grad(loss_fn)(full, *aux)
-        total = None
-        if layout is not None:
-            clean = layout.grads_like(clean)
-            total = layout.total
+        total = None if layout is None else layout.total
+        if layout is None or not layout.split_forward:
+            clean = torch.func.grad(loss_fn)(params, *aux)
+        else:
+            clean = tree_unflatten(
+                params, layout.worker_grads(loss_fn, params, aux)[1])
         scores = tree_reputation_scores(tree_leaves(grads),
                                         tree_leaves(clean), total=total)
         lr = DEFAULT_REP_LR if spec.rep_lr is None else spec.rep_lr

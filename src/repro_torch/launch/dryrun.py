@@ -31,6 +31,10 @@ else in the port it says so here:
                     without a result): the reference's five kinds (the
                     port runs no reduce-scatter, all-to-all or permute)
                     plus the port's ``broadcast`` and ``gather``
+  param_gathers     per parameter leaf (tree path) the all-gathers whose
+                    input is that leaf's slice, and their axis: the split
+                    forward gathers only the leaves it needs whole at
+                    their use (``RecordingMesh.gathers``)
   hlo_lines         the number of ATen ops traced
   lower_s/compile_s the seconds to build the step and its arguments, and
                     to trace it
@@ -42,10 +46,12 @@ else in the port it says so here:
                     (below), the dominant one, and ``model_flops`` per
                     rank over the traced FLOPs
   no_effect         the flags the port accepts and records but has nothing
-                    to switch: ``--expert-gather`` (the port's MoE has no
-                    expert-weight gather), ``--unroll`` (the port loops
-                    over periods; there is no scan to unroll) and
-                    ``--attn-shard`` (no GSPMD constraint to pin)
+                    to switch: ``--unroll`` (the port loops over periods;
+                    there is no scan to unroll).  ``--expert-gather``
+                    sets ``repro_torch.models.moe.EXPERT_WEIGHT_GATHER``
+                    for the call and ``--attn-shard`` the config's
+                    ``attn_shard``, which the split forward reads
+                    (``repro_torch.models.transformer``)
 
 The roofline's constants are data-sheet figures of an H100 SXM5 80GB at
 its 700 W power limit: HBM3 at 3.35e12 B/s; 67e12 FLOP/s for an fp32 step
@@ -112,6 +118,11 @@ class RecordingMesh:
     ``Mesh`` counts them: nothing on an axis of one rank, no bytes on a
     rank that a ``gather`` leaves without a result.
 
+    ``gathers`` lists every counted all-gather as ``{"axis", "dim",
+    "bytes", "leaf"}``: ``leaf`` is the tree path (``"a/b/c"``) of the
+    parameter leaf whose storage the input shares, among the leaves
+    :meth:`watch` was given, else ``None``.
+
     Args:
       shape: the mesh's shape, e.g. ``(16, 16)``.
       axis_names: one name per dimension (defaults as
@@ -138,6 +149,8 @@ class RecordingMesh:
             self.axis_names, np.unravel_index(self.rank, self.shape))}
         self.device = torch.device("meta")
         self.comm = _zero_comm()
+        self.gathers = []
+        self._leaves: Dict[int, str] = {}
 
     def size(self, axis: str) -> int:
         return mesh_axis_sizes(self).get(axis, 1)
@@ -147,6 +160,16 @@ class RecordingMesh:
 
     def reset_comm(self) -> None:
         self.comm = _zero_comm()
+        self.gathers = []
+
+    def watch(self, tree) -> None:
+        """Name ``tree``'s leaves (parameter slices) in :attr:`gathers`:
+        an all-gather whose input shares a leaf's storage (the leaf, a
+        view of it, a detached alias) records the leaf's path."""
+        from repro_torch.dist.sharding import _items
+        self._leaves = {x.untyped_storage()._cdata: "/".join(path)
+                        for path, x in _items(tree)
+                        if isinstance(x, torch.Tensor)}
 
     def _result(self, kind: str, x: torch.Tensor, shape) -> torch.Tensor:
         make = torch.empty if x.device.type == "meta" else torch.zeros
@@ -168,7 +191,11 @@ class RecordingMesh:
                    dim: int = 0) -> torch.Tensor:
         if self.size(axis) == 1:
             return x
-        return self._result("all_gather", x, self._gathered(x, axis, dim))
+        out = self._result("all_gather", x, self._gathered(x, axis, dim))
+        self.gathers.append({
+            "axis": axis, "dim": dim, "bytes": _nbytes(out),
+            "leaf": self._leaves.get(x.untyped_storage()._cdata)})
+        return out
 
     def gather(self, x: torch.Tensor, axis: str, dim: int = 0,
                dst: int = 0):
@@ -286,7 +313,8 @@ def trace_step(fn: Callable, *args, mesh=None) -> Dict[str, Any]:
       ``{"out", "flops", "bytes_accessed", "aten_ops", "temp_bytes"
       (the peak of the live tensors the step created), "argument_bytes",
       "output_bytes", "by_kind" (the mesh's ``comm["by_kind"]``, or
-      zeros), "launches" (the kernels' launch counts the step added),
+      zeros), "gathers" (a :class:`RecordingMesh`'s ``gathers``, or
+      ``[]``), "launches" (the kernels' launch counts the step added),
       "seconds"}``.
     """
     from repro_torch.kernels import _build
@@ -307,6 +335,7 @@ def trace_step(fn: Callable, *args, mesh=None) -> Dict[str, Any]:
             "argument_bytes": _arg_bytes(args),
             "output_bytes": _arg_bytes(out),
             "by_kind": {k: dict(v) for k, v in by_kind.items()},
+            "gathers": list(getattr(mesh, "gathers", [])),
             "launches": {k: _build.LAUNCHES[k] - before[k] for k in before},
             "seconds": seconds}
 
@@ -362,7 +391,7 @@ def roofline(flops: float, bytes_accessed: float, coll_bytes: float,
 
 def _local_replicas(tree, n: int, mesh):
     """A replica-stacked ``meta`` tree cut to this rank's replicas (each
-    replica whole: the port has no tensor-parallel forward)."""
+    replica whole: the serving steps have no tensor-parallel decode)."""
     from repro_torch.core.pytree import tree_map
     from repro_torch.dist.sharding import replica_rows
     rows, _ = replica_rows(n, mesh)
@@ -414,6 +443,7 @@ def trace_train_step(cfg, spec, optimizer, mesh, batch, *,
     from repro_torch.launch import specs as S
     params, param_sh = S.param_specs(cfg, mesh)
     local = S.local_tree(params, param_sh, mesh)
+    mesh.watch(local)
     opt_state = optimizer.init(local)
     inputs = {k: _meta(v) for k, v in batch.items() if v is not None}
     n_workers = inputs["tokens"].shape[0]
@@ -507,7 +537,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
 
     The arguments are the reference's (``--arch`` ids, the same
     defaults), plus ``expert_gather`` / ``legacy_sharding`` (the
-    reference's process-wide flags, here per call: the latter sets
+    reference's process-wide flags, here per call: they set
+    ``repro_torch.models.moe.EXPERT_WEIGHT_GATHER`` and
     ``repro_torch.dist.sharding.LEGACY_RULES`` for the call).
 
     Returns:
@@ -520,6 +551,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     from repro_torch.dist.serve import make_prefill_step, make_serve_step
     from repro_torch.dist.train import DistByzantineSpec
     from repro_torch.launch import specs as S
+    from repro_torch.models import moe
     from repro_torch.models.config import INPUT_SHAPES
     from repro_torch.optim import get_optimizer
 
@@ -543,9 +575,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         overrides["logits_dtype"] = logits_dtype
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    no_effect = [name for name, on in (
-        ("expert_gather", expert_gather), ("unroll_scan", unroll),
-        ("attn_shard", attn_shard)) if on]
+    no_effect = ["unroll_scan"] if unroll else []
     shape = INPUT_SHAPES[shape_name]
     mesh = RecordingMesh((2, 16, 16) if multi_pod else (16, 16))
     record: Dict[str, Any] = {
@@ -560,7 +590,9 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     n_chips = mesh.devices.size
     t0 = time.perf_counter()
     legacy_before = sharding.LEGACY_RULES
+    gather_before = moe.EXPERT_WEIGHT_GATHER
     sharding.LEGACY_RULES = legacy_before or legacy_sharding
+    moe.EXPERT_WEIGHT_GATHER = gather_before or expert_gather
     try:
         params, _ = S.param_specs(cfg, mesh)
         inputs, in_sh = S.input_specs(cfg, shape_name, mesh)
@@ -615,6 +647,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         record["compile_s"] = round(traced["seconds"], 1)
     finally:
         sharding.LEGACY_RULES = legacy_before
+        moe.EXPERT_WEIGHT_GATHER = gather_before
 
     coll = collectives_record(traced["by_kind"])
     record["memory_analysis"] = {
@@ -628,6 +661,12 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         ({"kind": k, "bytes": v["bytes"], "count": v["count"]}
          for k, v in coll.items() if v["count"]),
         key=lambda r: -r["bytes"])
+    gathered: Dict[str, int] = {}
+    for g in traced["gathers"]:
+        if g["leaf"] is not None:
+            key = f"{g['axis']}:{g['leaf']}"
+            gathered[key] = gathered.get(key, 0) + 1
+    record["param_gathers"] = gathered
     record["hlo_lines"] = traced["aten_ops"]
     record["kernel_launches"] = {k: v for k, v in traced["launches"].items()
                                  if v}
@@ -674,8 +713,8 @@ def main(argv=None) -> None:
     ap.add_argument("--async-schedule", default="fixed",
                     choices=["fixed", "random"])
     ap.add_argument("--expert-gather", action="store_true",
-                    help="accepted and recorded under no_effect: the "
-                         "port's MoE has no expert-weight gather")
+                    help="expert weights column / row-parallel at their "
+                         "use in the split forward")
     ap.add_argument("--legacy-sharding", action="store_true",
                     help="pre-iteration param sharding rules (A/B baseline)")
     ap.add_argument("--logits-dtype", default=None,
@@ -689,8 +728,9 @@ def main(argv=None) -> None:
                     help="ensemble size (0 = the rule's minimal quorum)")
     ap.add_argument("--attn-shard", default=None,
                     choices=[None, "none", "batch"],
-                    help="recorded under no_effect: no GSPMD constraint "
-                         "to pin in the port")
+                    help="override cfg.attn_shard (batch: attention "
+                         "split over the model axis by sequences, else "
+                         "queries)")
     ap.add_argument("--unroll", action="store_true",
                     help="recorded under no_effect: the port loops over "
                          "periods, there is no scan to unroll")

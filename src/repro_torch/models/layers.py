@@ -10,6 +10,12 @@ from an explicit ``torch.Generator`` on the device the weights go to;
 ``lead`` prepends stacking axes (the transformer's period axis), with
 fan-in read from the unstacked shape as the reference's ``vmap``-ed
 initializers do.
+
+Each layer takes an optional ``shard`` (a
+``repro_torch.dist.tensor_parallel.Shard`` of its parameter dict): its
+weights are then one rank's slices split over a mesh's ``model`` axis,
+its input and output are whole on every rank, and the collectives run
+inside; ``shard=None`` is the one-device layer.
 """
 from __future__ import annotations
 
@@ -72,13 +78,15 @@ def init_rmsnorm(d: int, dtype, device=None,
                                 device=device)}
 
 
-def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6,
+            shard=None) -> torch.Tensor:
     """RMSNorm computed in fp32 (``rsqrt`` of the mean square), cast back
-    to ``x``'s dtype."""
+    to ``x``'s dtype (under a shard the scale is gathered on use)."""
+    scale = p["scale"] if shard is None else shard.get(p, "scale")
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+    return (y * scale.to(torch.float32)).to(x.dtype)
 
 
 # -- linear ------------------------------------------------------------------
@@ -93,12 +101,14 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype,
     return p
 
 
-def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """``x @ w (+ b)``."""
-    y = x @ p["w"]
-    if "b" in p:
-        y = y + p["b"]
-    return y
+def linear(p: dict, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """``x @ w (+ b)`` (under a shard whole on every rank, the bias added
+    once after the product's collective)."""
+    if shard is None:
+        y = x @ p["w"]
+        return y + p["b"] if "b" in p else y
+    y = shard.matmul(x, p, "w")
+    return y + shard.get(p, "b") if "b" in p else y
 
 
 # -- embedding ---------------------------------------------------------------
@@ -110,14 +120,37 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype,
                       * 0.02).to(dtype)}
 
 
-def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """Row lookup: ``(..., )`` int tokens -> ``(..., d)``."""
-    return p["table"][tokens.long()]
+def embed(p: dict, tokens: torch.Tensor, shard=None) -> torch.Tensor:
+    """Row lookup: ``(..., )`` int tokens -> ``(..., d)``.  A table split
+    on the vocabulary looks up its own rows (zeros for the others'
+    tokens), then all-reduces: each token's row comes from one rank, so
+    the sum is that row bit for bit."""
+    tokens = tokens.long()
+    d = None if shard is None else shard.dim("table")
+    if d is None:
+        return p["table"][tokens]
+    table = p["table"]
+    if d == 1:
+        return shard.gather(table[tokens], -1)
+    rows = table.shape[0]
+    local = tokens - shard.index * rows
+    mine = (local >= 0) & (local < rows)
+    out = table[torch.clamp(local, 0, rows - 1)]
+    return shard.reduce(torch.where(mine[..., None], out,
+                                    torch.zeros_like(out)))
 
 
-def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Tied output projection ``x @ table.T``."""
-    return x @ p["table"].T.to(x.dtype)
+def unembed(p: dict, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """Tied output projection ``x @ table.T``.  Under a shard whose table
+    is split on the vocabulary: this rank's vocabulary columns of the
+    logits, never gathered (the loss is vocabulary-parallel)."""
+    table = p["table"].to(x.dtype)
+    d = None if shard is None else shard.dim("table")
+    if d is None:
+        return x @ table.T
+    if d == 0:
+        return shard.copy(x) @ table.T
+    return shard.reduce(shard.split(x, -1) @ table.T)
 
 
 # -- dense FFN ---------------------------------------------------------------
@@ -134,14 +167,33 @@ def init_ffn(gen: torch.Generator, d: int, d_ff: int, act: str, dtype,
             "wo": he_init(gen, (d_ff, d), dtype, lead=lead)}
 
 
-def ffn(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+def ffn(p: dict, x: torch.Tensor, act: str, shard=None) -> torch.Tensor:
     """The FFN; weights with a leading expert axis run batched over it
     (``x`` then carries the same leading axis).  ``gelu`` is the tanh
-    approximation, as ``jax.nn.gelu(approximate=True)``."""
+    approximation, as ``jax.nn.gelu(approximate=True)``.
+
+    Under a shard whose ``wi`` (and ``wg``) split on their output dim and
+    ``wo`` on its contraction dim, the hidden units stay split from the
+    first products to the last (one all-reduce forward, one backward);
+    any other layout takes each product whole (``Shard.matmul``)."""
+    def local(h, key):
+        return h @ p[key]
+
+    if shard is None:
+        return _ffn_body(local, x, act)
+    nd = p["wi"].dim()
+    if shard.dim("wo") == nd - 2 and all(
+            shard.dim(k) == nd - 1 for k in ("wi", "wg") if k in p):
+        return shard.reduce(_ffn_body(local, shard.copy(x), act))
+    return _ffn_body(lambda h, key: shard.matmul(h, p, key), x, act)
+
+
+def _ffn_body(mm, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The FFN's activations around ``mm(input, weight key)``."""
     if act == "swiglu":
-        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+        h = F.silu(mm(x, "wg")) * mm(x, "wi")
     elif act == "geglu":
-        h = F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wi"])
+        h = F.gelu(mm(x, "wg"), approximate="tanh") * mm(x, "wi")
     else:
-        h = F.gelu(x @ p["wi"], approximate="tanh")
-    return h @ p["wo"]
+        h = F.gelu(mm(x, "wi"), approximate="tanh")
+    return mm(h, "wo")

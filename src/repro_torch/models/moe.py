@@ -13,9 +13,17 @@ back).  Both return the Switch load-balance auxiliary loss.
 Routing follows the reference exactly: top-k ties go to the lower
 expert index (``lax.top_k``'s rule, here a stable descending sort,
 since ``torch.topk`` promises no order among ties), and an expert's
-positions count tokens in token order, slot by slot.  The reference's
-expert-weight sharding constraint is a no-op without a mesh and has no
-counterpart here.
+positions count tokens in token order, slot by slot.
+
+Under a ``shard`` (``repro_torch.dist.tensor_parallel.Shard``, the
+multi-rank train step) routing runs on the same tokens on every
+``model`` rank with the router gathered on use, so capacity and drops
+are the one-device step's; the experts run on this rank's slices
+(``layers.ffn``).  :data:`EXPERT_WEIGHT_GATHER` is the reference's
+process-wide toggle: when set, expert ``wi`` / ``wg`` are taken
+column-parallel and ``wo`` row-parallel at their use, whatever dims
+their storage splits (re-laid out there), as the reference's sharding
+constraint pins them.
 """
 from __future__ import annotations
 
@@ -26,7 +34,30 @@ import torch
 
 from repro_torch.models import layers
 
-__all__ = ["init_moe", "moe_ffn"]
+__all__ = ["EXPERT_WEIGHT_GATHER", "init_moe", "moe_ffn"]
+
+#: process-wide toggle (set by the launcher, read at call time): under a
+#: shard, expert weights are re-laid out to tensor-parallel-only specs at
+#: their use (``wi`` / ``wg`` column-parallel, ``wo`` row-parallel)
+EXPERT_WEIGHT_GATHER: bool = False
+
+
+def _gathered_experts(experts: dict, shard):
+    """``(experts, shard)`` as the expert FFN takes them: with
+    :data:`EXPERT_WEIGHT_GATHER` under a shard whose ``model`` axis
+    divides the hidden width, each weight re-laid out to the
+    column / row-parallel spec."""
+    if shard is None or not EXPERT_WEIGHT_GATHER:
+        return experts, shard
+    nd = experts["wi"].dim()
+    hidden = experts["wo"].shape[nd - 2] * (
+        shard.size if shard.dim("wo") == nd - 2 else 1)
+    if not shard.divides(hidden):
+        return experts, shard
+    want = {k: (nd - 2 if k == "wo" else nd - 1) for k in experts}
+    out = {k: shard.relayout(w, shard.dim(k), want[k])
+           for k, w in experts.items()}
+    return out, type(shard)(shard.mesh, want)
 
 
 def init_moe(gen: torch.Generator, d: int, d_ff: int, n_experts: int,
@@ -52,10 +83,11 @@ def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
-def _route(p: dict, xt: torch.Tensor, top_k: int):
+def _route(p: dict, xt: torch.Tensor, top_k: int, shard=None):
     """Gates ``(T, E)``, the renormalized top-k gate values and their
     expert indices ``(T, k)``, lower index first among ties."""
-    logits = xt.to(torch.float32) @ p["router"]
+    router = p["router"] if shard is None else shard.get(p, "router")
+    logits = xt.to(torch.float32) @ router
     gates = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = vals[:, :top_k], idx[:, :top_k]
@@ -84,8 +116,8 @@ def _aux_loss(gates: torch.Tensor, gate_idx: torch.Tensor,
 
 
 def moe_ffn(p: dict, x: torch.Tensor, *, top_k: int, act: str,
-            capacity_factor: float = 1.25, impl: str = "einsum"
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            capacity_factor: float = 1.25, impl: str = "einsum",
+            shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN.
 
     Args:
@@ -96,6 +128,8 @@ def moe_ffn(p: dict, x: torch.Tensor, *, top_k: int, act: str,
       capacity_factor: buffer slack; capacity is ``max(1, ceil(top_k * T
         / E * capacity_factor))``.
       impl: ``"einsum"`` or ``"scatter"`` (same routing and drops).
+      shard: ``None``, or the ``Shard`` of ``p`` (see the module
+        docstring).
 
     Returns:
       ``(out (B, S, D), aux_loss scalar)``.
@@ -104,7 +138,9 @@ def moe_ffn(p: dict, x: torch.Tensor, *, top_k: int, act: str,
     e = p["router"].shape[1]
     t = b * s
     xt = x.reshape(t, d)
-    gates, gate_vals, gate_idx = _route(p, xt, top_k)
+    gates, gate_vals, gate_idx = _route(p, xt, top_k, shard)
+    experts, eshard = _gathered_experts(
+        p["experts"], None if shard is None else shard["experts"])
     capacity = max(1, int(math.ceil(top_k * t / e * capacity_factor)))
     fill = torch.zeros((e,), dtype=torch.int64, device=x.device)
 
@@ -121,7 +157,7 @@ def moe_ffn(p: dict, x: torch.Tensor, *, top_k: int, act: str,
             exp_in = exp_in.index_put((idx, pc), add.to(exp_in.dtype),
                                       accumulate=True)
             slots.append((idx, pc, keep))
-        exp_out = layers.ffn(p["experts"], exp_in, act)     # (E, C, D)
+        exp_out = layers.ffn(experts, exp_in, act, eshard)  # (E, C, D)
         out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
         for slot, (idx, pc, keep) in enumerate(slots):
             # gather and weight in the compute dtype, accumulate in fp32
@@ -142,10 +178,11 @@ def moe_ffn(p: dict, x: torch.Tensor, *, top_k: int, act: str,
             dispatch = dispatch | (disp > 0)
             combine = combine + disp * gate_vals[:, slot][:, None, None]
         exp_in = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), xt)
-        exp_out = layers.ffn(p["experts"], exp_in, act)     # (E, C, D)
+        exp_out = layers.ffn(experts, exp_in, act, eshard)  # (E, C, D)
         out = torch.einsum("ecd,tec->td", exp_out.to(torch.float32),
                            combine)
     out = out.to(x.dtype).reshape(b, s, d)
     if "shared" in p:
-        out = out + layers.ffn(p["shared"], x, act)
+        out = out + layers.ffn(p["shared"], x, act,
+                               None if shard is None else shard["shared"])
     return out, _aux_loss(gates, gate_idx, e)

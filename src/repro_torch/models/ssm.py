@@ -8,6 +8,12 @@ loop carries the ``(H, N, P)`` state.  Serving prefills with the same
 chunked form (:func:`mamba_prefill` keeps the final state and the conv
 history) and decodes one token at a time with the exact recurrent form
 (:func:`mamba_decode_step`), whose state has a constant size.
+
+:func:`mamba_forward` takes an optional ``shard``
+(``repro_torch.dist.tensor_parallel.Shard``, the multi-rank train
+step): the projections then run on this rank's slices whole on every
+rank (``Shard.matmul``), the conv, decay and norm leaves gathered on
+use.
 """
 from __future__ import annotations
 
@@ -171,14 +177,18 @@ def _split_proj(proj: torch.Tensor, d_in: int, n: int, h: int):
     return z, xbc, dt
 
 
-def _mamba_sequence(p: dict, x: torch.Tensor, cfg, chunk: int):
+def _mamba_sequence(p: dict, x: torch.Tensor, cfg, chunk: int, shard=None):
     """The block over a whole sequence: ``(out (B, S, D), xBC (B, S,
     C), final SSM state)``."""
     b, s, d = x.shape
     d_in = cfg.ssm_expand * d
     n, h, hd = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    if shard is not None:
+        p = dict(p, **{k: shard.get(p, k) for k in
+                       ("conv_w", "conv_b", "A_log", "D", "dt_bias")})
 
-    proj = x @ p["in_proj"]
+    proj = x @ p["in_proj"] if shard is None else shard.matmul(
+        x, p, "in_proj")
     z, xbc, dt = _split_proj(proj, d_in, n, h)
 
     # causal depthwise conv over the (x, B, C) channels
@@ -202,14 +212,18 @@ def _mamba_sequence(p: dict, x: torch.Tensor, cfg, chunk: int):
     y = y + xs.to(torch.float32) * p["D"][None, None, :, None]
     y = y.reshape(b, s, d_in).to(x.dtype)
 
-    y = layers.rmsnorm(p["norm"], y * F.silu(z))
-    return y @ p["out_proj"], xbc, h_final
+    if shard is None:
+        y = layers.rmsnorm(p["norm"], y * F.silu(z))
+        return y @ p["out_proj"], xbc, h_final
+    y = layers.rmsnorm(p["norm"], y * F.silu(z), shard=shard["norm"])
+    return shard.matmul(y, p, "out_proj"), xbc, h_final
 
 
 def mamba_forward(p: dict, x: torch.Tensor, cfg,
-                  chunk: int = 128) -> torch.Tensor:
-    """Full-sequence Mamba-2 block: ``(B, S, D) -> (B, S, D)``."""
-    return _mamba_sequence(p, x, cfg, chunk)[0]
+                  chunk: int = 128, shard=None) -> torch.Tensor:
+    """Full-sequence Mamba-2 block: ``(B, S, D) -> (B, S, D)`` (under a
+    ``shard``, on this rank's slices; see the module docstring)."""
+    return _mamba_sequence(p, x, cfg, chunk, shard)[0]
 
 
 def mamba_prefill(p: dict, x: torch.Tensor, cfg, chunk: int = 128):

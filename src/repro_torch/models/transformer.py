@@ -6,9 +6,22 @@ The layer stack is grouped into repeating *periods*
 leading period axis (``periods/s{j}``) and the forward loops over that
 axis, as the reference scans it; remainder layers (``tail/t{t}``, when
 ``n_layers % period != 0``) have their own parameters.  The reference
-wraps each period in ``jax.checkpoint``, a memory choice with no effect
-on values; the port keeps every activation instead
-(``torch.utils.checkpoint`` does not compose with ``torch.func.vmap``).
+wraps each period and tail layer in ``jax.checkpoint``, a memory choice
+with no effect on values.  On one device the port keeps every activation
+(``torch.utils.checkpoint`` does not compose with the train step's
+``torch.func.vmap``); under a ``shard`` (the multi-rank train step, one
+worker per ``torch.autograd`` pass) each period, tail layer and encoder
+layer runs under ``torch.utils.checkpoint``, as the reference's.
+
+``forward(..., shard=)`` runs the forward on one rank's
+``param_shardings`` slices, split over the mesh's ``model`` axis
+(``repro_torch.dist.tensor_parallel``): activations whole on every rank
+between the layers, the logits this rank's vocabulary columns when the
+output table splits on the vocabulary.  Attention follows the
+reference's ``_attn_constrain``: with ``cfg.attn_shard == "batch"``
+each ``model`` rank attends for ``B / model`` of the sequences, or,
+when ``model`` does not divide the batch, for ``S / model`` of every
+sequence's queries; otherwise every rank runs the whole attention.
 The serving path (``prefill``, ``decode_step``) is ``models/decode.py``.
 """
 from __future__ import annotations
@@ -16,6 +29,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
@@ -138,57 +152,112 @@ def _proj(x: torch.Tensor, p: dict, w: str, b: str) -> torch.Tensor:
     return y + p[b] if b in p else y
 
 
+def _sub(shard, key):
+    """``shard[key]``, or ``None`` without a shard."""
+    return None if shard is None else shard[key]
+
+
+def _projections(p, x: torch.Tensor, kv: torch.Tensor, shard):
+    """``q`` from ``x``, ``k`` and ``v`` from ``kv``, each ``(B, S,
+    heads * hd)`` whole on every rank.  Under a shard that splits all
+    three weights on their contraction dim (and ``x`` is ``kv``), the
+    three partial products take one all-reduce."""
+    keys = (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))
+    if shard is None:
+        return [_proj(t, p, w, b) for t, (w, b) in zip((x, kv, kv), keys)]
+    if x is kv and all(shard.dim(w) == 0 for w, _ in keys):
+        xs = shard.split(x, -1)
+        parts = [xs @ p[w] for w, _ in keys]
+        out = torch.split(shard.reduce(torch.cat(parts, dim=-1)),
+                          [t.shape[-1] for t in parts], dim=-1)
+    else:
+        out = [shard.matmul(t, p, w) for t, (w, _) in zip((x, kv, kv),
+                                                          keys)]
+    return [y + shard.get(p, b) if b in p else y
+            for y, (_, b) in zip(out, keys)]
+
+
 _KINDS = {"attn": "attn", "attn_nope": "attn", "swa": "swa",
           "chunked": "chunked", "bidir": "bidir", "xattn": "attn"}
 
 
+def _attend(q, k, v, cfg: ModelConfig, kind: str, impl: str, shard):
+    """``attention`` of whole ``q, k, v``, split over ``model`` as the
+    module docstring says; the output whole on every rank."""
+    b, s, hq = q.shape[:3]
+    hkv = k.shape[2]
+    kw = dict(kind=kind, window=cfg.window, chunk=cfg.chunk, impl=impl)
+    if shard is None or shard.size == 1 or cfg.attn_shard != "batch":
+        return attention(q, k, v, **kw)
+    if shard.divides(b):
+        q, k, v = torch.split(shard.split(torch.cat([q, k, v], dim=2), 0),
+                              [hq, hkv, hkv], dim=2)
+        return shard.gather(attention(q, k, v, **kw), 0)
+    if shard.divides(s):
+        k, v = torch.split(shard.copy(torch.cat([k, v], dim=2)),
+                           [hkv, hkv], dim=2)
+        o = attention(shard.split(q, 1), k, v,
+                      q_offset=shard.index * (s // shard.size), **kw)
+        return shard.gather(o, 1)
+    return attention(q, k, v, **kw)
+
+
+def _out_proj(o: torch.Tensor, p: dict, shard) -> torch.Tensor:
+    return o @ p["wo"] if shard is None else shard.matmul(o, p, "wo")
+
+
 def _self_attention(p, x, cfg: ModelConfig, slot: str, positions,
-                    impl: str) -> torch.Tensor:
+                    impl: str, shard=None) -> torch.Tensor:
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = _proj(x, p, "wq", "bq").reshape(b, s, cfg.n_heads, hd)
-    k = _proj(x, p, "wk", "bk").reshape(b, s, cfg.n_kv_heads, hd)
-    v = _proj(x, p, "wv", "bv").reshape(b, s, cfg.n_kv_heads, hd)
+    q, k, v = _projections(p, x, x, shard)
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
     if slot != "attn_nope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v, kind=_KINDS[slot], window=cfg.window,
-                  chunk=cfg.chunk, impl=impl)
-    return o.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+    o = _attend(q, k, v, cfg, _KINDS[slot], impl, shard)
+    return _out_proj(o.reshape(b, s, cfg.n_heads * hd), p, shard)
 
 
 def _cross_attention(p, x, enc_out, cfg: ModelConfig,
-                     impl: str) -> torch.Tensor:
+                     impl: str, shard=None) -> torch.Tensor:
     b, s, _ = x.shape
     hd = cfg.head_dim
     se = enc_out.shape[1]
-    q = _proj(x, p, "wq", "bq").reshape(b, s, cfg.n_heads, hd)
-    k = _proj(enc_out, p, "wk", "bk").reshape(b, se, cfg.n_kv_heads, hd)
-    v = _proj(enc_out, p, "wv", "bv").reshape(b, se, cfg.n_kv_heads, hd)
+    q, k, v = _projections(p, x, enc_out, shard)
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, se, cfg.n_kv_heads, hd)
+    v = v.reshape(b, se, cfg.n_kv_heads, hd)
     o = attention(q, k, v, kind="cross", impl=impl)
-    return o.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+    return _out_proj(o.reshape(b, s, cfg.n_heads * hd), p, shard)
 
 
 def _apply_layer(p, x, cfg: ModelConfig, slot: str, positions, enc_out,
-                 impl: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                 impl: str, shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def norm(key):
+        return layers.rmsnorm(p[key], x, shard=_sub(shard, key))
+
     if slot == "mamba":
-        x = x + ssm.mamba_forward(p["mix"], layers.rmsnorm(p["ln"], x), cfg)
+        x = x + ssm.mamba_forward(p["mix"], norm("ln"), cfg,
+                                  shard=_sub(shard, "mix"))
     else:
-        x = x + _self_attention(p["attn"], layers.rmsnorm(p["ln"], x), cfg,
-                                slot, positions, impl)
+        x = x + _self_attention(p["attn"], norm("ln"), cfg, slot, positions,
+                                impl, _sub(shard, "attn"))
         if slot == "xattn":
-            x = x + _cross_attention(p["xatt"],
-                                     layers.rmsnorm(p["ln_x"], x), enc_out,
-                                     cfg, impl)
+            x = x + _cross_attention(p["xatt"], norm("ln_x"), enc_out, cfg,
+                                     impl, _sub(shard, "xatt"))
     if "ffn" in p:
-        x = x + layers.ffn(p["ffn"], layers.rmsnorm(p["ln_f"], x),
-                           cfg.ffn_act)
+        x = x + layers.ffn(p["ffn"], norm("ln_f"), cfg.ffn_act,
+                           shard=_sub(shard, "ffn"))
     elif "moe" in p:
-        y, a = moe.moe_ffn(p["moe"], layers.rmsnorm(p["ln_f"], x),
-                           top_k=cfg.moe_top_k, act=cfg.ffn_act,
+        y, a = moe.moe_ffn(p["moe"], norm("ln_f"), top_k=cfg.moe_top_k,
+                           act=cfg.ffn_act,
                            capacity_factor=cfg.capacity_factor,
-                           impl=cfg.moe_impl)
+                           impl=cfg.moe_impl, shard=_sub(shard, "moe"))
         x = x + y
         aux = aux + a
     return x, aux
@@ -199,24 +268,53 @@ def _stacked(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _entry(tree, i: int, shard):
+    """Entry ``i`` of a stacked tree and its shard (``None``)."""
+    if shard is None:
+        return _stacked(tree, i), None
+    return shard.entry(tree, i)
+
+
 def _stack_len(tree) -> int:
     return tree_leaves(tree)[0].shape[0]
 
 
+def _run(fn, shard, *args):
+    """``fn(*args)``; under a shard with its activations recomputed in
+    the backward (the reference's ``jax.checkpoint``)."""
+    if shard is None:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def _run_encoder(params, cfg: ModelConfig, enc_embeds: torch.Tensor,
-                 impl: str) -> torch.Tensor:
+                 impl: str, shard=None) -> torch.Tensor:
     positions = torch.arange(enc_embeds.shape[1], device=enc_embeds.device)
     stack = params["encoder"]["layers"]
+    enc = _sub(shard, "encoder")
     x = enc_embeds
     for i in range(_stack_len(stack)):
-        x, _ = _apply_layer(_stacked(stack, i), x, cfg, "bidir", positions,
-                            None, impl)
-    return layers.rmsnorm(params["encoder"]["final_norm"], x)
+        lp, ls = _entry(stack, i, _sub(enc, "layers"))
+        x, _ = _run(_apply_layer, shard, lp, x, cfg, "bidir", positions,
+                    None, impl, ls)
+    return layers.rmsnorm(params["encoder"]["final_norm"], x,
+                          shard=_sub(enc, "final_norm"))
+
+
+def _period(period_p, x, aux, cfg: ModelConfig, positions, enc_out,
+            impl: str, shard):
+    """One period's layers: ``(x, aux)`` after them."""
+    for j, slot in enumerate(cfg.layer_pattern):
+        x, a = _apply_layer(period_p[f"s{j}"], x, cfg, slot, positions,
+                            enc_out, impl, _sub(shard, f"s{j}"))
+        aux = aux + a
+    return x, aux
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
-            extra: Optional[torch.Tensor] = None, impl: str = "auto"
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            extra: Optional[torch.Tensor] = None, impl: str = "auto",
+            shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits.
 
     Args:
@@ -228,16 +326,22 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
         whisper encoder's frame embeddings, or the vlm's patch
         embeddings that ``xattn`` layers attend to.
       impl: attention path, ``"auto"`` | ``"naive"`` | ``"blockwise"``.
+      shard: ``None`` on one device, or the
+        ``repro_torch.dist.tensor_parallel.Shard`` of ``params`` (then
+        this rank's ``param_shardings`` slices; see the module
+        docstring).
 
     Returns:
       ``(logits (B, S, V), aux_loss scalar fp32)``; logits in
       ``cfg.logits_dtype`` (bf16 casts the final activations and the
-      output table), soft-capped when ``cfg.logit_softcap > 0``.
+      output table), soft-capped when ``cfg.logit_softcap > 0``.  Under
+      a shard whose output table splits on the vocabulary, ``V`` is this
+      rank's columns, ``[index * V, (index + 1) * V)`` of the whole.
     """
-    x = layers.embed(params["embed"], tokens)
+    x = layers.embed(params["embed"], tokens, shard=_sub(shard, "embed"))
     if cfg.arch_type == "audio":
         assert extra is not None, "whisper needs encoder frame embeddings"
-        enc_out = _run_encoder(params, cfg, extra, impl)
+        enc_out = _run_encoder(params, cfg, extra, impl, shard)
     elif cfg.arch_type == "vlm":
         assert extra is not None, "vlm needs patch embeddings"
         enc_out = extra
@@ -248,26 +352,30 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     periods = params["periods"]
     for i in range(_stack_len(periods)):
-        period_p = _stacked(periods, i)
-        for j, slot in enumerate(cfg.layer_pattern):
-            x, a = _apply_layer(period_p[f"s{j}"], x, cfg, slot, positions,
-                                enc_out, impl)
-            aux = aux + a
+        period_p, period_s = _entry(periods, i, _sub(shard, "periods"))
+        x, aux = _run(_period, shard, period_p, x, aux, cfg, positions,
+                      enc_out, impl, period_s)
     for t in range(cfg.n_tail):
         slot = cfg.slot(cfg.n_periods * cfg.period + t)
-        x, a = _apply_layer(params["tail"][f"t{t}"], x, cfg, slot,
-                            positions, enc_out, impl)
+        x, a = _run(_apply_layer, shard, params["tail"][f"t{t}"], x, cfg,
+                    slot, positions, enc_out, impl,
+                    _sub(_sub(shard, "tail"), f"t{t}"))
         aux = aux + a
 
-    x = layers.rmsnorm(params["final_norm"], x)
-    emb = params.get("lm_head", params["embed"])
+    x = layers.rmsnorm(params["final_norm"], x,
+                       shard=_sub(shard, "final_norm"))
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    emb = params[head]
     if cfg.logits_dtype == "bfloat16":
         x = x.to(torch.bfloat16)
         emb = tree_map(lambda w: w.to(torch.bfloat16), emb)
     if cfg.tie_embeddings:
-        logits = layers.unembed(emb, x)
+        logits = layers.unembed(emb, x, shard=_sub(shard, head))
+    elif shard is not None and shard[head].dim("w") == 1:
+        # this rank's vocabulary columns, never gathered
+        logits = shard.copy(x) @ emb["w"]
     else:
-        logits = layers.linear(emb, x)
+        logits = layers.linear(emb, x, shard=_sub(shard, head))
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)

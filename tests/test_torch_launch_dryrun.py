@@ -153,8 +153,8 @@ def test_dryrun_cli_writes_the_artifact(tmp_path):
     assert rec["mesh"] == "16x16"
     assert rec["legacy_sharding"] is True
     assert rec["overrides"] == {"unroll_scan": True, "attn_shard": "batch"}
-    assert rec["no_effect"] == ["expert_gather", "unroll_scan",
-                                "attn_shard"]
+    # --expert-gather and --attn-shard switch the split forward
+    assert rec["no_effect"] == ["unroll_scan"]
     # one K1 per local leaf slice under the model axis
     assert rec["kernel_launches"] == {"pairwise_gram_partial": 11}
 
@@ -182,6 +182,53 @@ def test_other_steps_trace(arch, shape, kw, launches):
     _schema(rec)
     assert rec["kernel_launches"] == launches
     assert rec["collectives"]["all-reduce"]["count"] > 0
+
+
+@pytest.fixture(scope="module")
+def full_width():
+    """gemma3-1b ``train_4k`` at full width over ``fused`` on the single-
+    and the multi-pod production mesh, and llama3.2-3b's on the former."""
+    return {
+        "single": dryrun.run_one("gemma3-1b", "train_4k",
+                                 distance_backend="fused"),
+        "multi": dryrun.run_one("gemma3-1b", "train_4k", multi_pod=True,
+                                distance_backend="fused"),
+        "llama": dryrun.run_one("llama3.2-3b", "train_4k",
+                                distance_backend="fused"),
+    }
+
+
+def test_full_width_train_step_fits_and_splits(full_width):
+    """The split forward on 16 x 16: arguments and temp within 64 GiB per
+    rank, at least 0.4 of the traced FLOPs the model's own; on 2 x 16 x
+    16 (``pod`` splits each worker's batch) half the FLOPs per rank,
+    within 10%."""
+    one, two = full_width["single"], full_width["multi"]
+    for rec in (one, two):
+        _schema(rec)
+        mem = rec["memory_analysis"]
+        assert (mem["argument_size_in_bytes"]
+                + mem["temp_size_in_bytes"]) <= 64 * 2 ** 30
+        assert rec["roofline"]["useful_flops_ratio"] >= 0.4
+        assert rec["kernel_launches"] == {"pairwise_gram_partial": 74}
+    ratio = two["cost_analysis"]["flops"] / one["cost_analysis"]["flops"]
+    assert abs(ratio - 0.5) <= 0.05, ratio
+
+
+@pytest.mark.parametrize("name", ["single", "multi", "llama"])
+def test_no_parameter_leaf_is_gathered_but_period_norm_scales(full_width,
+                                                              name):
+    """Over ``model`` only the periods' norm scales are gathered, on use:
+    once per period in the forward and once in its recomputation."""
+    rec = full_width[name]
+    assert rec["param_gathers"]
+    for key, count in rec["param_gathers"].items():
+        axis, leaf = key.split(":")
+        assert axis == "model", key
+        assert leaf.startswith("periods/") and leaf.endswith(
+            ("/ln/scale", "/ln_f/scale")), key
+        n_periods = 4 if name != "llama" else 28
+        assert count == 2 * n_periods, key
 
 
 def test_skip_record():

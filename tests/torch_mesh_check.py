@@ -41,8 +41,8 @@ from repro_torch.models import init_model
 from repro_torch.optim import get_optimizer
 from torch_llm_compare import SLICE, leaf_windows
 
-__all__ = ["gather_slices", "llm_rank", "reduced_rank", "single_rank",
-           "whole_windows"]
+__all__ = ["gather_slices", "llm_rank", "pod_rank", "reduced_rank",
+           "single_rank", "whole_windows"]
 
 #: tile width of K1's plain version when timed on a wide shard
 PLAIN_TILE = 2 ** 20
@@ -364,22 +364,25 @@ def llm_rank(mesh, arch: str, layers: Optional[int], n: int, f: int,
 
 
 def reduced_rank(mesh, arch: str, n: int, f: int, batches, steps: int,
-                 lr: float, params_seed: int) -> Dict[str, Any]:
+                 lr: float, params_seed: int,
+                 attn_shard: str = "none") -> Dict[str, Any]:
     """A reduced config's sharded steps on this rank: ``bulyan-krum``
     (synchronous), the asynchronous step at tau = 2 with
     ``stale-bulyan-krum`` and at tau = 0, all over ``fused`` under
-    ``omniscient_linf`` with momentum SGD, from the same weights.
+    ``omniscient_linf`` with momentum SGD, from the same weights, with
+    the config's ``attn_shard`` set to ``attn_shard``.
 
     Returns:
       Per run the parameters after each step (whole, CPU), the launches
-      per step, the metrics; for the synchronous run each step's
-      submissions (whole, through the step's ``observe`` hook) and for
-      the tau = 2 run each step's bus and versions; and whether tau = 0
-      equals the synchronous run bit for bit.
+      per step, the metrics, the step's collectives per kind and its
+      time; for the synchronous run each step's submissions (whole,
+      through the step's ``observe`` hook, gathered after the step) and
+      for the tau = 2 run each step's bus and versions; and whether
+      tau = 0 equals the synchronous run bit for bit.
     """
     dev = mesh.device
     _setup(dev)
-    cfg = get_reduced(arch)
+    cfg = dataclasses.replace(get_reduced(arch), attn_shard=attn_shard)
     params = init_model(params_seed, cfg, device=dev)
     template = tree_map(lambda p: p.to("meta"), params)
     pspecs = param_shardings(params, mesh)
@@ -402,24 +405,29 @@ def reduced_rank(mesh, arch: str, n: int, f: int, batches, steps: int,
         else:
             step = make_train_step(
                 cfg, spec, opt, mesh=mesh, template=template,
-                observe=lambda sub, res: subs.append(
-                    _cpu(gather_tree(sub, gspecs, mesh))))
+                observe=lambda sub, res: subs.append(_cpu(sub)))
         rows = []
         for t in range(steps):
             row = {}
             _sync(dev)
             _build.reset_launches()
+            mesh.reset_comm()
+            t0 = time.perf_counter()
             if asynchronous:
                 local, state, m, agg_state = step(local, state, batches[t],
                                                   agg_state)
+            else:
+                local, state, m = step(local, state, batches[t])
+            _sync(dev)
+            row["ms"] = (time.perf_counter() - t0) * 1e3
+            row["launches"] = dict(_build.LAUNCHES)
+            row["comm_kinds"] = comm_snapshot(mesh.comm)["by_kind"]
+            if asynchronous:
                 row["bus"] = _cpu(gather_tree(agg_state.bus.grads, gspecs,
                                               mesh))
                 row["versions"] = agg_state.bus.versions.cpu()
             else:
-                local, state, m = step(local, state, batches[t])
-                row["sub"] = subs[-1]
-            _sync(dev)
-            row["launches"] = dict(_build.LAUNCHES)
+                row["sub"] = _cpu(gather_tree(subs[-1], gspecs, mesh))
             row["params"] = _cpu(gather_tree(local, pspecs, mesh))
             row["metrics"] = {k: float(v) for k, v in m.items()}
             rows.append(row)
@@ -432,6 +440,47 @@ def reduced_rank(mesh, arch: str, n: int, f: int, batches, steps: int,
         torch.equal(a, b)
         for ra, rb in zip(out["async0"], out["sync"])
         for a, b in zip(tree_leaves(ra["params"]), tree_leaves(rb["params"])))
+    return out
+
+
+def pod_rank(mesh, arch: str, n: int, f: int, batch, lr: float,
+             params_seed: int) -> Dict[str, Any]:
+    """One synchronous sharded step of a reduced config on a mesh with a
+    ``pod`` axis (``attn_shard="batch"``): ``bulyan-krum`` over ``fused``
+    under ``omniscient_linf`` with momentum SGD.
+
+    Returns:
+      ``{"coords", "params" (whole, CPU), "sub" (the step's submissions,
+      whole), "launches", "comm_kinds", "ms", "metrics"}``.
+    """
+    dev = mesh.device
+    _setup(dev)
+    cfg = dataclasses.replace(get_reduced(arch), attn_shard="batch")
+    params = init_model(params_seed, cfg, device=dev)
+    template = tree_map(lambda p: p.to("meta"), params)
+    pspecs = param_shardings(params, mesh)
+    gspecs = gram_shardings(params, mesh)
+    local = tree_map(lambda x: x.clone(), shard_tree(params, pspecs, mesh))
+    opt = get_optimizer("momentum", lr)
+    state = opt.init(local)
+    subs = []
+    spec = AggSpec(f=f, gar="bulyan-krum", attack="omniscient_linf",
+                   distance_backend="fused")
+    step = make_train_step(cfg, spec, opt, mesh=mesh, template=template,
+                           observe=lambda sub, res: subs.append(_cpu(sub)))
+    _sync(dev)
+    _build.reset_launches()
+    mesh.reset_comm()
+    t0 = time.perf_counter()
+    local, state, m = step(local, state, batch)
+    _sync(dev)
+    out = {"coords": dict(mesh.coords),
+           "ms": (time.perf_counter() - t0) * 1e3,
+           "launches": dict(_build.LAUNCHES),
+           "comm_kinds": comm_snapshot(mesh.comm)["by_kind"],
+           "metrics": {k: float(v) for k, v in m.items()}}
+    out["params"] = _cpu(gather_tree(local, pspecs, mesh))
+    out["sub"] = _cpu(gather_tree(subs[-1], gspecs, mesh))
     return out
 
 
