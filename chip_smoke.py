@@ -181,17 +181,25 @@ Phases, in order; any failure exits nonzero before the last line:
    and the single-device run's by the serving tests' rule
    (``tests/torch_serving_compare.py``: a parting only after a near-tie
    of the aggregate's two largest logits in either run, printed).  Then
-   the same two ranks as a (1, 2) mesh, the ``model`` axis at full width:
-   8 whole replicas per rank, ``fused`` becomes ``pallas``, exactly one K1
-   per aggregation per rank on its (8, 524,288) vocabulary slice and
-   nothing else, the same gates against the same single-device run (the
-   one-device aggregate under ``pallas``).  Readings: ms per decode step
-   and rank, the collectives' ms and bytes, tokens/s (the probe's own
-   capture forward left out), peak memory per rank, K5 on a rank's (8,
-   1,048,576) stack and K1 on its (8, 524,288) slice against their plain
-   versions (and K1 beside ``torch.mm``), timed with the card to itself.
+   the same two ranks as a (1, 2) mesh, the ``model`` axis at full width,
+   tensor-parallel: each rank holds the model halves of all 8 replicas
+   (``ensemble_param_shardings``' share in the serving layout, its bytes
+   exactly what ``launch.dryrun.serve_layout_bytes`` gives, under 51% of
+   the 8 replicas whole) and decodes on the split forward, ``fused``
+   becomes ``pallas``, exactly one K1 per aggregation per rank on its
+   (8, 524,288) vocabulary slice and nothing else, the same gates
+   against the same single-device run (the one-device aggregate under
+   ``pallas``).  Readings: ms per decode step and rank, the collectives'
+   ms and bytes (and, on (1, 2), their calls and bytes per kind per
+   decode step), tokens/s (the probe's own capture forward left out),
+   memory per rank (resident after the build, peak in the run, and on
+   (1, 2) the build's transient peak, when the rank holds the whole
+   ensemble and its share at once), K5 on a rank's (8, 1,048,576) stack
+   and K1 on its (8, 524,288) slice against their plain versions (and K1
+   beside ``torch.mm``), timed with the card to itself.
    (9e) the ``model`` axis with verify and telemetry: reduced llama3.2-3b,
-   8 replicas on a (2, 2) mesh (``fused`` becomes ``pallas``), per token,
+   8 replicas on a (2, 2) mesh, split over ``model`` as in 9d (``fused``
+   becomes ``pallas``), per token,
    with ``speculative_k = 4`` (draft replica 0) and with
    ``telemetry=True``: exactly one K1 per aggregation per rank on its
    vocabulary slice and nothing else, the first decode step's aggregate
@@ -244,10 +252,14 @@ Phases, in order; any failure exits nonzero before the last line:
    reference's ``tests/test_dryrun.py`` (reduced mamba2-130m
    ``train_4k`` on 16 x 16, reduced gemma3-1b ``decode_32k`` on
    2 x 16 x 16, ``--serve-gar bulyan-krum``, ``--async-tau 3`` with
-   ``stale-bulyan-krum``) and gemma3-1b ``train_4k`` at full width over
-   ``fused``: each artifact's schema as the reference's tests check it,
-   its roofline (H100 data-sheet figures, an estimate), launches and
-   seconds printed.  (12b) the hold: the dry-run's trace under
+   ``stale-bulyan-krum``), gemma3-1b ``train_4k`` at full width over
+   ``fused``, and the robust decode of a model no rank can hold whole,
+   mixtral-8x22b ``decode_32k`` with 16 replicas on 16 x 16 (one per
+   ``data`` row, split 16 ways; its per-rank arguments and temp printed
+   beside the arguments a whole replica per rank would take): each
+   artifact's schema as the reference's tests check it, its roofline
+   (H100 data-sheet figures, an estimate), launches and seconds
+   printed.  (12b) the hold: the dry-run's trace under
    ``RecordingMesh`` of 10a's step for each rank position, and of 9d's
    decode step on (2, 1) and (1, 2), on ``meta`` tensors; the predicted
    collectives per kind (calls and result bytes) must equal what each
@@ -2672,8 +2684,9 @@ def phase_serve_reduced(torch, np, rt):
 # ---------------------------------------------------------------------------
 
 #: 9d: 8a's gemma3-1b cut, 8 replicas, on a (2, 1) mesh (4 per rank) and
-#: then a (1, 2) mesh of the same two ranks (8 whole replicas per rank,
-#: the vocabulary split); 9e: reduced llama3.2-3b, 8 replicas on (2, 2)
+#: then a (1, 2) mesh of the same two ranks (the model halves of all 8
+#: replicas per rank, the split forward, the vocabulary split); 9e:
+#: reduced llama3.2-3b, 8 replicas on (2, 2), split the same way
 SHARD_SERVE_N, SHARD_SERVE_FULL, SHARD_SERVE_MODEL, SHARD_SERVE_REDUCED = (
     8, (2, 1), (1, 2), (2, 2))
 #: the K1-only launches of one aggregation under a model axis
@@ -2707,21 +2720,60 @@ def hold_streams(rt, got: dict, want: dict, what: str) -> int:
         log=lambda line: print(f"  {what}: {line}", flush=True))
 
 
-def hold_first_step(run: dict, single: dict, what: str) -> float:
-    """A sharded run's first decode step: the gathered stack at 1e-4 of
-    its largest entry off the single-device run's, and ``aggregate_logits``
-    on one device on that stack (under the backend the mesh resolves)
-    giving the step's selection and aggregate bit for bit and its scores
-    at 1e-4.  Returns the stack's relative error."""
-    _, rel, _ = scaled_err(run["stack"], single["stack"])
-    expect(rel <= FP32_TOL, f"{what}: the gathered stack is {rel:.3e} of "
-           f"its largest entry off one device's")
+def hold_first_step(run: dict, single: dict, what: str) -> str:
+    """A sharded run's first decode step: the gathered stack against the
+    single-device run's, and ``aggregate_logits`` on one device on that
+    stack (under the backend the mesh resolves) giving the step's
+    selection and aggregate bit for bit and its scores at 1e-4.
+
+    The honest replicas' rows are held at 1e-4 of their largest entry.
+    Each poisoned replica's row (the last ``SERVE_F``, which every
+    aggregation discards) is held at 1e-4 of its own largest entry, or
+    within how far one device's own row moves when that replica runs
+    alone rather than under the ensemble's ``vmap`` (``spread``: the same
+    function in another summation order), whichever is larger: a replica
+    whose weights are sign-flipped and scaled by 10 has attention scores
+    100 times the honest ones, and its logits follow rounding that far.
+    The second witness (``witness``): each poisoned row this rank holds
+    lies no farther from the same replica's step in float64 on its own
+    cache than that bound, so the split forward rounds no worse than one
+    device does.  Returns the errors as a line."""
+    got, want = run["stack"].double(), single["stack"].double()
+    honest = want.shape[0] - SERVE_F
+    err = float((got[:honest] - want[:honest]).abs().max())
+    rel = err / float(want[:honest].abs().max())
+    expect(rel <= FP32_TOL, f"{what}: the honest replicas' rows of the "
+           f"gathered stack are {rel:.3e} of their largest entry off one "
+           f"device's")
+    line = [f"honest rows {rel:.2e} of their largest entry"]
+    expect([i for i, _ in single["spread"]] == list(
+        range(honest, want.shape[0])), f"{what}: spread {single['spread']}")
+    for i, spread in single["spread"]:
+        own = float(want[i].abs().max())
+        e = float((got[i] - want[i]).abs().max())
+        expect(e <= max(FP32_TOL * own, spread), f"{what}: the poisoned "
+               f"replica {i}'s row is {e / own:.3e} of its largest entry "
+               f"off one device's; one device's own row moves "
+               f"{spread / own:.3e} of it in another summation order")
+        line.append(f"poisoned row {i} {e / own:.2e} of its own (one "
+                    f"device's rounding spread {spread / own:.2e})")
+        one64 = dict(single["witness"])[i]
+        for j, w in run["witness"]:
+            if j != i:
+                continue
+            expect(w <= max(FP32_TOL * own, spread), f"{what}: the "
+                   f"poisoned replica {i}'s row is {w / own:.3e} of its "
+                   f"largest entry off float64 on its own cache; one "
+                   f"device's row {one64 / own:.3e}, its rounding spread "
+                   f"{spread / own:.3e}")
+            line.append(f"off float64 on its own cache {w / own:.2e} (one "
+                        f"device's {one64 / own:.2e})")
     expect(run["on_stack"], f"{what}: the step's aggregate or selection "
            f"differs from aggregate_logits on one device on the same stack")
     expect(run["on_stack_scores"] <= FP32_TOL, f"{what}: the step's scores "
            f"are {run['on_stack_scores']:.3e} of their largest off one "
            f"device's on the same stack")
-    return rel
+    return ", ".join(line)
 
 
 def check_serve_calls(run: dict, per_call: dict, what: str,
@@ -2759,6 +2811,36 @@ def print_serve_times(r: dict, run: dict, n_tok: int, what: str,
           f"tokens/s; {r['resident_gib']:.1f} GiB resident after the "
           f"build, peak {run['peak_gib']:.1f} GiB in the run; built in "
           f"{r['build_s']:.1f} s ({smi})", flush=True)
+
+
+def check_share(r: dict, what: str) -> None:
+    """A rank's engine holds its share of the ensemble: the bytes the
+    serving layout gives it (its replicas' model slices, the leaves a
+    layer reads whole kept whole), under 51% of its replicas whole."""
+    lay = r["layout"]
+    expect(r["share_bytes"] == lay["share"], f"{what}: the engine holds "
+           f"{r['share_bytes']:,} B of parameters, its share is "
+           f"{lay['share']:,} B")
+    expect(lay["share"] < 0.51 * lay["whole"], f"{what}: a share of "
+           f"{lay['share']:,} B for {lay['whole']:,} B of whole replicas")
+
+
+def print_share(r: dict, run: dict, what: str, smi: str) -> None:
+    """A rank's parameter bytes against its replicas whole, its memory
+    around the build and the run, and the collectives of one decode
+    step per kind (every decode step's the same)."""
+    lay = r["layout"]
+    kinds = [c["comm_kinds"] for c in run["calls"]["decode"]]
+    expect(all(k == kinds[0] for k in kinds), f"{what}: decode steps ran "
+           f"different collectives")
+    print(f"  {what} rank {r['coords']}: parameters "
+          f"{lay['share'] / 2 ** 30:.3f} GiB (its {r['n_local']} replicas "
+          f"whole: {lay['whole'] / 2 ** 30:.3f} GiB; the leaves read whole "
+          f"add {lay['read_whole']:,} B); resident "
+          f"{r['resident_gib']:.2f} GiB after the build, peak "
+          f"{run['peak_gib']:.2f} GiB in the run, {r['build_peak_gib']:.2f}"
+          f" GiB while it built the whole ensemble and cut its share; per "
+          f"decode step {kinds_line(kinds[0])} ({smi})", flush=True)
 
 
 def hold_telemetry(np, torch, rt, mine: dict, other: dict, what: str):
@@ -2854,8 +2936,8 @@ def phase_shard_serve(torch, np, rt, smi):
           f"{len(run0['calls']['admit'])} admissions per rank, each exactly "
           f"K1 1, select 1, K4 1 (one K5), K2 / K3 0; the poisoned replica "
           f"never selected; the first decode step's gathered "
-          f"{tuple(run0['stack'].shape)} stack {rel:.2e} of its largest "
-          f"entry off the single-device run's, and each rank's aggregate "
+          f"{tuple(run0['stack'].shape)} stack off the single-device "
+          f"run's: {rel}; each rank's aggregate "
           f"and selection equal bit for bit to aggregate_logits on one "
           f"device on it; streams equal across ranks, {parted} parting(s) "
           f"from the single-device run", flush=True)
@@ -2881,13 +2963,16 @@ def phase_shard_serve(torch, np, rt, smi):
               f"ms ({row['bound_by']})", flush=True)
     out = {"k5_row": row, "k5_launches": run0["launches"]}
 
-    # 9d, the model axis at full width: one K1 per aggregation per rank
+    # 9d, the model axis at full width: each rank holds the model halves
+    # of all 8 replicas and decodes on them (the split forward); one K1
+    # per aggregation per rank
     for r in res_m:
         what = f"9d model axis rank {r['coords']}"
         run = r["token"]
         check_serve_calls(run, K1_CALL, what)
         expect(r["n_local"] == SHARD_SERVE_N,
                f"{what} holds {r['n_local']} replicas")
+        check_share(r, what)
         rel = hold_first_step(run, sd, what)
         expect(run["streams"] == res_m[0]["token"]["streams"],
                f"{what}: streams differ from rank 0's")
@@ -2897,17 +2982,19 @@ def phase_shard_serve(torch, np, rt, smi):
     row1 = dict(ms=k1["ms"], plain_ms=k1["plain_ms"],
                 library_ms=k1["library_ms"], max_abs_err=k1["max_abs_err"],
                 **bound(n, d, SERVE_F, K1_ONLY, 4))
-    print(f"  ok  9d model axis: {SHARD_SERVE_N} whole replicas per rank on "
-          f"a {SHARD_SERVE_MODEL} mesh of the same ranks, exactly one K1 "
-          f"per aggregation per rank on its vocabulary slice {k1['shape']} "
+    print(f"  ok  9d model axis: the model halves of all {SHARD_SERVE_N} "
+          f"replicas per rank on a {SHARD_SERVE_MODEL} mesh of the same "
+          f"ranks, decoding on the split forward; exactly one K1 per "
+          f"aggregation per rank on its vocabulary slice {k1['shape']} "
           f"and no select / K4 / K5 / K2 / K3; the poisoned replica never "
-          f"selected; the first decode step's stack {rel:.2e} of its "
-          f"largest entry off the single-device run's, each rank's "
+          f"selected; the first decode step's stack off the single-device "
+          f"run's: {rel}; each rank's "
           f"aggregate and selection equal bit for bit to aggregate_logits "
           f"on one device (pallas) on it; streams equal across ranks, "
           f"{parted} parting(s) from the single-device run", flush=True)
     for r in res_m:
         print_serve_times(r, r["token"], n_tok, "9d model axis", smi)
+        print_share(r, r["token"], "9d model axis", smi)
         k = r["k1"]
         print(f"  ok  9d model axis rank {r['coords']}: K1 on its "
               f"{k['shape']} slice {k['rel_err']:.2e} of the largest entry "
@@ -2937,6 +3024,7 @@ def phase_shard_serve(torch, np, rt, smi):
     t_e = time.perf_counter() - t0
     for r in res:
         what = f"9e rank {r['coords']}"
+        check_share(r, what)
         for name in set_e["runs"]:
             run = r[name]
             check_serve_calls(run, K1_CALL, f"{what} {name}",
@@ -3361,6 +3449,9 @@ DRYRUN_CASES = (
     ("gemma3-1b train_4k full width multi-pod", [
         "--arch", "gemma3-1b", "--shape", "train_4k", "--distance-backend",
         "fused", "--multi-pod"]),
+    ("mixtral-8x22b decode_32k serve-gar", [
+        "--arch", "mixtral-8x22b", "--shape", "decode_32k", "--serve-gar",
+        "bulyan-krum", "--serve-replicas", "16"]),
 )
 #: the split forward's bounds on the full-width train step per rank
 FULL_WIDTH_BYTES, FULL_WIDTH_USEFUL = 64 * 2 ** 30, 0.4
@@ -3455,6 +3546,25 @@ def phase_dryrun():
               f"model: {len(leaves)} period norm scales, each "
               f"{sorted(set(rec['param_gathers'].values()))} times",
               flush=True)
+    mix = recs["mixtral-8x22b decode_32k serve-gar"]
+    lay, mem = mix["serve_layout"], mix["memory_analysis"]
+    args = mem["argument_size_in_bytes"]
+    expect(mix["mesh"] == "16x16" and mix["serve_replicas"] == 16
+           and lay["share"] < lay["whole"] / 8 and not mix["param_gathers"],
+           f"12a mixtral-8x22b: layout {lay}, gathers "
+           f"{mix['param_gathers']}")
+    print(f"  12a mixtral-8x22b decode_32k, 16 replicas on 16 x 16 (one "
+          f"per data row, split 16 ways): per rank arguments "
+          f"{args / 2 ** 30:.2f} GiB ({lay['share'] / 2 ** 30:.2f} GiB of "
+          f"them parameters) + temp {mem['temp_size_in_bytes'] / 2 ** 30:.2f}"
+          f" GiB; a whole replica per rank would take "
+          f"{(args - lay['share'] + lay['whole']) / 2 ** 30:.2f} GiB of "
+          f"arguments ({lay['whole'] / 2 ** 30:.2f} GiB of parameters; its "
+          f"temp not traced); no parameter leaf gathered; the temp is "
+          f"{mem['temp_size_in_bytes'] / (args - lay['share']):.3f} times "
+          f"the other arguments (the KV cache, whole along model): the "
+          f"step writes a new cache out of place, layer by layer, and "
+          f"restacks it", flush=True)
     half = multi["cost_analysis"]["flops"] / full["cost_analysis"]["flops"]
     expect(abs(half - 0.5) <= 0.05, f"12a: multi-pod FLOPs per rank "
            f"{half:.4f} of the single pod's")

@@ -11,19 +11,22 @@
                   ``(n, n)`` partials all-reduced over ``model``), the
                   distance-backend dispatch, the windowed coordinate
                   phase, per-leaf attacks
-  tensor_parallel.py  the ``model`` axis inside one worker: the split
-                  forward's collectives as autograd Functions, the
-                  ``Shard`` the models read, the vocabulary-parallel
-                  cross-entropy
+  tensor_parallel.py  the ``model`` axis inside one worker or replica:
+                  the split forward's collectives as autograd Functions
+                  (with ``vmap`` rules for the serving steps' replica
+                  axis), the ``Shard`` the models read, the serving
+                  layout, the vocabulary-parallel cross-entropy
   train.py        the Byzantine train step over the model zoo, on one
                   device or on every rank of a mesh
   async_train.py  the gradient bus and the asynchronous train step
-  serve.py        prefill and decode steps
+  serve.py        prefill and decode steps (with ``mesh=``, on the
+                  rank's ``param_shardings`` slices), the serving layout
   serve_robust.py the Byzantine-resilient ensemble (replica stacks,
                   poisoning, robust logits aggregation, the prefill /
                   decode / speculative-verify steps), on one device or
-                  with ``mesh=`` (replicas on ``data``, the vocabulary
-                  of the logits stack on ``model``)
+                  with ``mesh=`` (replicas on ``data``, each replica's
+                  inner dims and the vocabulary of the logits stack on
+                  ``model``)
 """
 from repro_torch.dist.mesh import (make_host_mesh, make_production_mesh,
                                    mesh_axis_sizes, run_on_mesh)

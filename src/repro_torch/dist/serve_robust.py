@@ -26,19 +26,35 @@ The continuous-batching engine is ``repro_torch.serving.engine``
 (``ServingEngine(..., ensemble=spec)``).
 
 With ``mesh=`` (a ``repro_torch.dist.mesh.Mesh``; explicit SPMD, every
-rank runs the same steps on the same requests) the replicas split over
-``data`` as ``ensemble_param_shardings`` places them (every replica on
-every rank when ``data`` does not divide the ensemble).  A rank's steps
-take its own replicas and their caches (``sharding.local_replicas``),
-each replica whole along ``model``: the port has no tensor-parallel
-forward, so a rank holds ``n / data`` full parameter sets.  The rank's
-``(n / data, B, V)`` logits are all-gathered over ``data`` in replica
-order, the attack runs on that whole stack, and the aggregation splits
-the vocabulary over ``model`` (``sharding.logits_pspec``): each rank
-aggregates its slice through ``distributed_aggregate(mesh=, specs=)``
-(K1 per slice with the ``(n, n)`` partials all-reduced; ``fused``
-becomes ``pallas`` there, as in the reference) and the aggregate is
-gathered back to the ``(B, V)`` logits every rank samples from.  With
+rank runs the same steps on the same requests) a rank holds its share of
+the ensemble as ``ensemble_param_shardings`` lays it out: its replicas
+(``data`` splits the ensemble where it divides, else every replica on
+every rank), each cut to its ``model`` slices, in the serving layout
+(``dist.serve.serve_specs``: the few leaves a layer reads whole, norm
+scales, biases, the router and the SSM's conv and decay leaves, kept
+whole, so no step gathers a parameter); :func:`ensemble_share` cuts it
+from the whole ensemble.  The steps run the rank's replicas through
+``vmap`` on the split forward (``models.decode`` with ``shard=``); each
+collective of ``repro_torch.dist.tensor_parallel`` has a ``vmap`` rule,
+so it runs once on the rank's ``(n / data, ...)`` stack, and a step's
+collectives do not grow in number with the replicas a rank holds.  The
+caches keep the reference's layout: the replicas' rows, whole along
+``model``.
+
+The rank's ``(n / data, B, V)`` logits are all-gathered over ``data``
+in replica order.  Where the output table splits on the vocabulary they
+leave the forward as the rank's vocabulary columns, which is
+``sharding.logits_pspec``'s split of the stack: without a logits attack
+the rank aggregates that slice as it is, with no gather over ``model``;
+a logits attack sees the whole stack, gathered over ``model`` first (a
+random attack draws every replica's whole noise and the rank keeps its
+slice, as one device draws).  The aggregation then splits the
+vocabulary over ``model``: each rank aggregates its slice through
+``distributed_aggregate(mesh=, specs=)`` (K1 per slice with the ``(n,
+n)`` partials all-reduced; ``fused`` becomes ``pallas`` there, as in the
+reference) and the aggregate is gathered back to the ``(B, V)`` logits
+every rank samples from.  A vocabulary that ``model`` does not divide
+leaves the logits whole and the stack whole on every rank.  With
 ``model = 1`` ``fused`` stays fused: K5 on the gathered stack on every
 rank.
 """
@@ -55,18 +71,21 @@ from repro_torch.device import host_index, resolve_device
 from repro_torch.dist.mesh import mesh_axis_sizes
 from repro_torch.dist.robust import (distributed_aggregate, inject_byzantine,
                                      resolve_distance_backend)
+from repro_torch.dist.serve import serve_shard, serve_specs
 from repro_torch.dist.sharding import (P, gather_replicas, gather_shard,
-                                       local_shape, local_shard,
-                                       logits_pspec)
+                                       local_ensemble, local_shape,
+                                       local_shard, logits_pspec, model_dim)
 from repro_torch.dist.train import _RANDOM_ATTACKS, _attack_generator
 from repro_torch.models import decode_step, prefill, verify_step
+from repro_torch.models.decode import logits_split
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import named_span
 
-__all__ = ["aggregate_logits", "init_ensemble_state",
-           "make_robust_prefill_step", "make_robust_serve_step",
-           "make_robust_verify_step", "poison_replicas", "replicate_cache",
-           "replicate_params", "reset_slot_state", "stack_replicas"]
+__all__ = ["aggregate_logits", "ensemble_share", "gathered_logits",
+           "init_ensemble_state", "make_robust_prefill_step",
+           "make_robust_serve_step", "make_robust_verify_step",
+           "poison_replicas", "replicate_cache", "replicate_params",
+           "reset_slot_state", "stack_replicas"]
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +211,8 @@ def aggregate_logits(logits: torch.Tensor, f: int, gar: str, *,
                      state: Optional[AggState] = None,
                      history_window: Optional[int] = None,
                      rep_lr: Optional[float] = None,
-                     rep_decay: Optional[float] = None):
+                     rep_decay: Optional[float] = None,
+                     vocab_slice: bool = False):
     """Aggregate a replica-stacked logits tensor through the registry.
 
     The stack goes into ``distributed_aggregate`` as a one-leaf tree, so
@@ -223,6 +243,10 @@ def aggregate_logits(logits: torch.Tensor, f: int, gar: str, *,
       rep_lr: ``reputation-*`` EMA rate (``None``: the default).
       rep_decay: ``reputation-*`` forgetting factor (``None``: the
         default).
+      vocab_slice: under a ``model`` axis, ``logits`` is already this
+        rank's slice of the stack, ``logits_pspec``'s split of its last
+        dim (what the tensor-parallel forward gives), aggregated as it
+        is.
 
     Returns:
       ``(aggregate, DistAggResult)``, plus the new state for a stateful
@@ -238,10 +262,16 @@ def aggregate_logits(logits: torch.Tensor, f: int, gar: str, *,
                                     **kw)
         agg = out[0]["logits"]
     else:
-        spec = logits_pspec(tuple(logits.shape), mesh)
-        out = distributed_aggregate(
-            {"logits": local_shard(logits, spec, mesh)}, f, gar, mesh=mesh,
-            specs={"logits": spec}, **kw)
+        shape = tuple(logits.shape)
+        if vocab_slice:
+            shape = shape[:-1] + (shape[-1] * mesh.size("model"),)
+        spec = logits_pspec(shape, mesh)
+        if vocab_slice and model_dim(spec) != len(shape) - 1:
+            raise ValueError(f"vocab_slice=True, but logits_pspec does not "
+                             f"split the last dim of a {shape} stack")
+        local = logits if vocab_slice else local_shard(logits, spec, mesh)
+        out = distributed_aggregate({"logits": local}, f, gar, mesh=mesh,
+                                    specs={"logits": spec}, **kw)
         agg = gather_shard(out[0]["logits"], P(*spec[1:]), mesh)
     if len(out) == 3:
         return agg, out[1], out[2]
@@ -344,7 +374,7 @@ def _maybe_attack_logits(stack: torch.Tensor, spec: AggSpec,
 
 
 def _aggregate(spec: AggSpec, stack: torch.Tensor, state, stateful: bool,
-               mesh=None):
+               mesh=None, vocab_slice: bool = False):
     """One ``aggregate_logits`` under ``spec``: ``(agg, diag, state)``
     (the state passes through for a stateless rule)."""
     out = aggregate_logits(
@@ -352,7 +382,7 @@ def _aggregate(spec: AggSpec, stack: torch.Tensor, state, stateful: bool,
         agg_dtype=spec.agg_dtype, distance_backend=spec.distance_backend,
         mesh=mesh, state=state if stateful else None,
         history_window=spec.history_window, rep_lr=spec.rep_lr,
-        rep_decay=spec.rep_decay)
+        rep_decay=spec.rep_decay, vocab_slice=vocab_slice)
     return out[0], out[1], (out[2] if stateful else state)
 
 
@@ -376,6 +406,81 @@ def _whole_stack(local: torch.Tensor, n_replicas, mesh) -> torch.Tensor:
     return gather_replicas(local, n_replicas, mesh)
 
 
+def ensemble_share(stacked_params: Any, cfg: ModelConfig, mesh,
+                   n_replicas: Optional[int] = None) -> Any:
+    """This rank's share of a whole replica-stacked ensemble, as the
+    ``mesh=`` steps take it (views; see the module docstring).
+
+    Args:
+      stacked_params: the whole ``(n, ...)``-stacked parameter tree.
+      cfg: the replicas' model configuration.
+      mesh: this rank's mesh.
+      n_replicas: the ensemble's size (``None``: the leaves' leading
+        axis).
+
+    Returns:
+      The rank's replicas, each cut to its ``model`` slices in the
+      serving layout (``dist.serve.serve_specs``).
+    """
+    n = n_replicas or tree_leaves(stacked_params)[0].shape[0]
+    return local_ensemble(stacked_params, mesh, serve_specs(cfg, mesh, n))
+
+
+def gathered_logits(local: torch.Tensor, n_replicas: Optional[int], mesh,
+                    split: bool) -> torch.Tensor:
+    """Every replica's whole logits from this rank's: gathered over
+    ``data`` when it splits the ensemble, and over ``model`` when
+    ``split`` (the rank's logits are its vocabulary columns,
+    ``models.decode.logits_split``).
+
+    Args:
+      local: ``(n_local, ..., V_local)`` logits of the rank's replicas.
+      n_replicas: the ensemble's size.
+      mesh: this rank's mesh, or ``None``.
+      split: whether the last dim is the rank's vocabulary columns.
+
+    Returns:
+      ``(n, ..., V)``, the same on every rank.
+    """
+    stack = _whole_stack(local, n_replicas, mesh)
+    return mesh.all_gather(stack, "model", stack.dim() - 1) if split else (
+        stack)
+
+
+class _Replicas:
+    """What a robust step does with the rank's replicas: the forward under
+    ``vmap`` (on the split forward under a ``model`` axis larger than 1),
+    and the logits stack each aggregation takes."""
+
+    def __init__(self, cfg: ModelConfig, spec: AggSpec, mesh, n_replicas):
+        self.mesh = _mesh_of(mesh)
+        self.n = _ensemble_size(mesh, n_replicas)
+        self.shard = serve_shard(cfg, mesh, n_replicas or 1)
+        self.split = logits_split(cfg, self.shard)
+        self.attacked = spec.attack != "none" and spec.f > 0
+
+    def forward(self, fn: Callable, *trees):
+        """``fn(*replica's trees, shard)`` over the replica axis."""
+        shard = self.shard
+        return torch.func.vmap(lambda *a: fn(*a, shard))(*trees)
+
+    def stack(self, local: torch.Tensor, attack: bool = False):
+        """``(stack, vocab_slice)``: every replica's logits from the
+        rank's (``(n_local, B, [k,] V_local)``); the rank's vocabulary
+        slice where the forward gave one, ``logits_pspec`` splits the
+        same dim and no attack needs the whole stack, else whole."""
+        stack = _whole_stack(local, self.n, self.mesh)
+        if not self.split:
+            return stack, False
+        whole = (stack.shape[0], stack.shape[1],
+                 stack.shape[-1] * self.mesh.size("model"))
+        if (attack and self.attacked) or model_dim(
+                logits_pspec(whole, self.mesh)) != 2:
+            return self.mesh.all_gather(stack, "model", stack.dim() - 1), (
+                False)
+        return stack, True
+
+
 def make_robust_prefill_step(cfg: ModelConfig, spec: AggSpec,
                              cache_len: int = 0, impl: str = "auto",
                              mesh=None,
@@ -389,9 +494,9 @@ def make_robust_prefill_step(cfg: ModelConfig, spec: AggSpec,
       cache_len: decode-cache positions (``0``: the prompt's length).
       impl: attention path of the prefill.
       mesh: a rank's ``Mesh``, or ``None`` (see the module docstring):
-        the step then takes this rank's replicas
-        (``sharding.local_replicas``), gathers their logits over
-        ``data`` and aggregates over the mesh.
+        the step then takes this rank's share (:func:`ensemble_share`),
+        gathers the replicas' logits over ``data`` and aggregates over
+        the mesh.
       n_replicas: the ensemble's size; needed under a mesh with a
         ``data`` axis larger than 1.
 
@@ -402,24 +507,24 @@ def make_robust_prefill_step(cfg: ModelConfig, spec: AggSpec,
       last-position ``(n, B, V)`` logits aggregated through
       ``spec.gar`` (stateful rules from a zero state: the carried state
       starts on the decode stream), the caches replica-stacked (under a
-      mesh, this rank's replicas').
+      mesh, this rank's replicas', whole along ``model``).
     """
-    n_replicas = _ensemble_size(mesh, n_replicas)
+    reps = _Replicas(cfg, spec, mesh, n_replicas)
     resolve_distance_backend(spec.distance_backend)
 
     def prefill_step(stacked_params, tokens: torch.Tensor,
                      extra: Optional[torch.Tensor] = None):
-        logits, caches = torch.func.vmap(
-            lambda p: prefill(p, cfg, tokens, extra, cache_len=cache_len,
-                              impl=impl))(stacked_params)
-        stack = _whole_stack(logits[:, :, -1, :].to(torch.float32),
-                             n_replicas, mesh)
+        logits, caches = reps.forward(
+            lambda p, s: prefill(p, cfg, tokens, extra, cache_len=cache_len,
+                                 impl=impl, shard=s), stacked_params)
+        stack, sliced = reps.stack(logits[:, :, -1, :].to(torch.float32))
         out = aggregate_logits(
             stack, spec.f_declared, spec.effective_gar,
             agg_dtype=spec.agg_dtype,
             distance_backend=spec.distance_backend, mesh=mesh,
             history_window=spec.history_window,
-            rep_lr=spec.rep_lr, rep_decay=spec.rep_decay)
+            rep_lr=spec.rep_lr, rep_decay=spec.rep_decay,
+            vocab_slice=sliced)
         return out[0], caches, out[1]
 
     return prefill_step
@@ -434,9 +539,10 @@ def make_robust_serve_step(cfg: ModelConfig, spec: AggSpec, mesh=None,
       spec: the serving ``AggSpec``; ``spec.attack`` (``"none"`` to
         disable) poisons the last ``spec.f`` replicas' logits.
       mesh: a rank's ``Mesh``, or ``None``: the step then takes this
-        rank's replicas and their caches, gathers the logits over
-        ``data``, attacks the whole stack (every rank draws the same
-        noise) and aggregates over the mesh (see the module docstring).
+        rank's share (:func:`ensemble_share`) and its replicas' caches,
+        gathers the logits over ``data``, attacks the whole stack (every
+        rank draws the same noise) and aggregates over the mesh (see the
+        module docstring).
       n_replicas: the ensemble's size; needed under a mesh with a
         ``data`` axis larger than 1.
 
@@ -450,20 +556,20 @@ def make_robust_serve_step(cfg: ModelConfig, spec: AggSpec, mesh=None,
       int32; thread the returned state into the next call (``None`` for
       a stateless rule).
     """
-    n_replicas = _ensemble_size(mesh, n_replicas)
+    reps = _Replicas(cfg, spec, mesh, n_replicas)
     resolve_distance_backend(spec.distance_backend)
     stateful = spec.rule().stateful
 
     def serve_step(stacked_params, stacked_cache, token: torch.Tensor, pos,
                    agg_state: Optional[AggState] = None):
-        logits, new_cache = torch.func.vmap(
-            lambda p, c: decode_step(p, cfg, c, token, pos)
-        )(stacked_params, stacked_cache)
-        stack = _whole_stack(logits[:, :, 0, :].to(torch.float32),
-                             n_replicas, mesh)
+        logits, new_cache = reps.forward(
+            lambda p, c, s: decode_step(p, cfg, c, token, pos, shard=s),
+            stacked_params, stacked_cache)
+        stack, sliced = reps.stack(logits[:, :, 0, :].to(torch.float32),
+                                   attack=True)
         stack = _maybe_attack_logits(stack, spec, pos)
         agg, diag, new_state = _aggregate(spec, stack, agg_state, stateful,
-                                          mesh)
+                                          mesh, sliced)
         return agg, new_cache, diag, (new_state if stateful else None)
 
     return serve_step
@@ -499,7 +605,7 @@ def make_robust_verify_step(cfg: ModelConfig, spec: AggSpec, mesh=None,
     """
     from repro_torch.dist.robust import DistAggResult
     from repro_torch.models import verify_supported
-    n_replicas = _ensemble_size(mesh, n_replicas)
+    reps = _Replicas(cfg, spec, mesh, n_replicas)
     resolve_distance_backend(spec.distance_backend)
     ok, reason = verify_supported(cfg)
     if not ok:
@@ -509,17 +615,18 @@ def make_robust_verify_step(cfg: ModelConfig, spec: AggSpec, mesh=None,
 
     def verify(stacked_params, stacked_cache, tokens: torch.Tensor, pos,
                agg_state: Optional[AggState] = None):
-        logits, new_cache = torch.func.vmap(
-            lambda p, c: verify_step(p, cfg, c, tokens, pos)
-        )(stacked_params, stacked_cache)
-        stack = _whole_stack(logits.to(torch.float32), n_replicas,
-                             mesh)                  # (n, B, k, V)
+        logits, new_cache = reps.forward(
+            lambda p, c, s: verify_step(p, cfg, c, tokens, pos, shard=s),
+            stacked_params, stacked_cache)
+        stack, sliced = reps.stack(logits.to(torch.float32),
+                                   attack=True)     # (n, B, k, V)
         stack = _maybe_attack_logits(stack, spec, pos)
         aggs, diags = [], []
         for j in range(stack.shape[2]):             # stream order
             with named_span("serve/verify"):
                 agg, diag, agg_state = _aggregate(spec, stack[:, :, j],
-                                                  agg_state, stateful, mesh)
+                                                  agg_state, stateful, mesh,
+                                                  sliced)
             aggs.append(agg)
             diags.append(diag)
         diag = DistAggResult(*(torch.stack(fs) for fs in zip(*diags)))

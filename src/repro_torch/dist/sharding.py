@@ -30,7 +30,8 @@ from repro_torch.dist.mesh import mesh_axis_sizes
 __all__ = ["LEGACY_RULES", "P", "batch_pspec", "cache_shardings",
            "ensemble_cache_shardings", "ensemble_param_shardings",
            "gather_replicas", "gather_shard", "gather_tree", "gram_pspec",
-           "gram_shardings", "local_replicas", "local_shard", "local_shape",
+           "gram_shardings", "local_ensemble", "local_replicas",
+           "local_shard", "local_shape",
            "logits_pspec", "model_dim", "param_shardings",
            "per_worker_specs", "replica_rows", "shard_tree",
            "tree_map_with_path"]
@@ -303,6 +304,29 @@ def local_replicas(tree: Any, mesh, n: Optional[int] = None) -> Any:
     leaves = tree_leaves(tree)
     rows, _ = replica_rows(leaves[0].shape[0] if n is None else n, mesh)
     return tree_unflatten(tree, [x[rows] for x in leaves])
+
+
+def local_ensemble(tree: Any, mesh, specs: Any = None) -> Any:
+    """This rank's share of a replica-stacked tree (views): its replicas
+    (:func:`replica_rows` cuts the leading axis), each cut to its
+    ``model`` slices (:func:`local_shard` of the inner dims).
+
+    Args:
+      tree: a tree of whole ``(n, ...)`` leaves.
+      mesh: this rank's mesh.
+      specs: the tree's layout (``None``: :func:`ensemble_param_shardings`
+        of ``tree``); its leading entries are :func:`replica_rows`'.
+
+    Returns:
+      The tree of this rank's slices.
+    """
+    if specs is None:
+        specs = ensemble_param_shardings(tree, mesh)
+    leaves = tree_leaves(tree)
+    rows, _ = replica_rows(leaves[0].shape[0], mesh)
+    return tree_unflatten(tree, [
+        local_shard(x[rows], P(None, *s[1:]), mesh)
+        for x, s in zip(leaves, _spec_leaves(specs))])
 
 
 def gather_replicas(x: torch.Tensor, n: int, mesh) -> torch.Tensor:

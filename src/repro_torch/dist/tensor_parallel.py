@@ -1,7 +1,9 @@
 """Tensor parallelism over a mesh's ``model`` axis: the train step's
-per-worker forward and backward on each rank's ``param_shardings``
-slices (the reference leaves this to GSPMD, which partitions each
-worker's replica over ``model`` inside one program).
+per-worker forward and backward, and the serving steps' prefill, decode
+and verify, on each rank's ``param_shardings`` /
+``ensemble_param_shardings`` slices (the reference leaves this to GSPMD,
+which partitions each worker's or replica's parameters over ``model``
+inside one program).
 
 Four collectives, each a ``torch.autograd.Function`` around
 :class:`repro_torch.dist.mesh.Mesh`'s (so ``Mesh.comm`` counts every
@@ -42,6 +44,16 @@ and decay leaves) is gathered on use, one leaf at a time
 gradients of the leaves whole on every rank are then equal on every
 rank, and those of the split leaves are this rank's slices of the
 whole leaf's gradient.
+
+The serving steps run a rank's replicas through ``torch.func.vmap`` over
+the leading replica axis.  ``vmap`` cannot pass a collective, so each
+Function above has a ``vmap`` rule that runs its collective once on the
+whole ``(n_local, ...)`` stack: a decode step makes as many collectives
+with 8 replicas per rank as with 1, only larger ones.  A decode step
+must not gather parameters on every token either, so the serving
+layout (:func:`serving_specs`) keeps the leaves a layer reads whole
+(:data:`READ_WHOLE`) whole on every rank, cut so from the whole tree
+before the first step.
 """
 from __future__ import annotations
 
@@ -49,7 +61,8 @@ from typing import Any, Optional
 
 import torch
 
-__all__ = ["Shard", "model_shard", "vocab_parallel_nll"]
+__all__ = ["READ_WHOLE", "Shard", "model_shard", "read_whole",
+           "serving_specs", "vocab_parallel_nll"]
 
 _AXIS = "model"
 
@@ -58,25 +71,40 @@ class _Reduce(torch.autograd.Function):
     """Sum over ``model`` forward, identity backward."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
+    def forward(x, mesh):
         return mesh.all_reduce(x, _AXIS)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh):
+        return mesh.all_reduce(x, _AXIS), in_dims[0]
 
 
 class _Copy(torch.autograd.Function):
     """Identity forward, sum over ``model`` backward."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(x, mesh):
         return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mesh = inputs[1]
 
     @staticmethod
     def backward(ctx, g):
         return ctx.mesh.all_reduce(g, _AXIS), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, mesh):
+        return x.view_as(x), in_dims[0]
 
 
 def _narrow(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
@@ -89,26 +117,44 @@ class _Gather(torch.autograd.Function):
     """All-gather along ``dim`` forward, this rank's slice backward."""
 
     @staticmethod
-    def forward(ctx, x, dim, mesh):
-        ctx.dim, ctx.mesh = dim, mesh
+    def forward(x, dim, mesh):
         return mesh.all_gather(x, _AXIS, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim, ctx.mesh = inputs[1], inputs[2]
 
     @staticmethod
     def backward(ctx, g):
         return _narrow(g, ctx.dim, ctx.mesh), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim, mesh):
+        if in_dims[0] is None:
+            return mesh.all_gather(x, _AXIS, dim), None
+        return mesh.all_gather(x.movedim(in_dims[0], 0), _AXIS, dim + 1), 0
 
 
 class _Split(torch.autograd.Function):
     """This rank's slice along ``dim`` forward, all-gather backward."""
 
     @staticmethod
-    def forward(ctx, x, dim, mesh):
-        ctx.dim, ctx.mesh = dim, mesh
+    def forward(x, dim, mesh):
         return _narrow(x, dim, mesh)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dim, ctx.mesh = inputs[1], inputs[2]
 
     @staticmethod
     def backward(ctx, g):
         return ctx.mesh.all_gather(g, _AXIS, ctx.dim), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim, mesh):
+        if in_dims[0] is None:
+            return _narrow(x, dim, mesh), None
+        return _narrow(x.movedim(in_dims[0], 0), dim + 1, mesh), 0
 
 
 class Shard:
@@ -125,16 +171,28 @@ class Shard:
       dims: a tree in the parameters' structure whose leaves are the
         dim each leaf's local slice splits over ``model`` (``None``:
         whole on every rank).
+      gathers: whether a leaf may be gathered on use (:meth:`get`,
+        :meth:`entry`, :meth:`relayout`); the serving layout's shards
+        say no, so a step that would gather a parameter on every call
+        raises instead.
     """
 
-    def __init__(self, mesh, dims: Any):
+    def __init__(self, mesh, dims: Any, gathers: bool = True):
         self.mesh = mesh
         self.dims = dims
+        self.gathers = gathers
         self.size = mesh.size(_AXIS)
         self.index = mesh.index(_AXIS)
 
     def __getitem__(self, key) -> "Shard":
-        return Shard(self.mesh, self.dims[key])
+        return Shard(self.mesh, self.dims[key], self.gathers)
+
+    def _gathering(self, what) -> None:
+        if not self.gathers:
+            raise ValueError(
+                f"parameter leaf {what!r} is split over model in the "
+                f"serving layout, so each step would gather it: "
+                f"tensor_parallel.READ_WHOLE must name it")
 
     def dim(self, key) -> Optional[int]:
         """The split dim of leaf ``key`` of this sub-tree, or ``None``."""
@@ -148,11 +206,13 @@ class Shard:
         leaves, dims = [], []
         for x, d in zip(tree_leaves(tree), tree_leaves(self.dims)):
             if d == 0:
+                self._gathering(tuple(x.shape))
                 x, d = self.gather(x, 0), None
             leaves.append(x[i])
             dims.append(None if d is None else d - 1)
         return (tree_unflatten(tree, leaves),
-                Shard(self.mesh, tree_unflatten(self.dims, dims)))
+                Shard(self.mesh, tree_unflatten(self.dims, dims),
+                      self.gathers))
 
     # -- the collectives (identity with one rank) ---------------------------
 
@@ -186,7 +246,10 @@ class Shard:
     def get(self, p: dict, key) -> torch.Tensor:
         """Leaf ``key`` of ``p`` whole, gathered on use when split."""
         d = self.dims[key]
-        return p[key] if d is None else self.gather(p[key], d)
+        if d is None:
+            return p[key]
+        self._gathering(key)
+        return self.gather(p[key], d)
 
     def relayout(self, w: torch.Tensor, src: Optional[int],
                  dst: Optional[int]) -> torch.Tensor:
@@ -195,6 +258,7 @@ class Shard:
         if src == dst:
             return w
         if src is not None:
+            self._gathering(tuple(w.shape))
             w = self.gather(w, src)
         return w if dst is None else self.split(w, dst)
 
@@ -213,27 +277,83 @@ class Shard:
         return self.gather(self.split(x, xd) @ w, xd)
 
 
-def model_shard(mesh, specs: Any) -> Shard:
+def model_shard(mesh, specs: Any, lead: int = 0,
+                gathers: bool = True) -> Shard:
     """The :class:`Shard` of a parameter tree laid out by ``specs`` (the
     ``param_shardings`` tree of :class:`repro_torch.dist.sharding.P`).
 
     Args:
       mesh: this rank's mesh.
       specs: the parameters' specs, in the parameters' structure.
+      lead: stacked axes in front of each leaf that the layers do not
+        see (1 for a replica-stacked ensemble run under ``vmap``).
+      gathers: whether the layers may gather a leaf on use (``False``
+        for the serving layout, :func:`serving_specs`).
 
     Returns:
-      A :class:`Shard` whose dims are each spec's ``model`` dim.
+      A :class:`Shard` whose dims are each spec's ``model`` dim, less
+      ``lead``.
+    """
+    from repro_torch.dist.sharding import model_dim
+
+    def dim(s):
+        d = model_dim(s)
+        return None if d is None else d - lead
+
+    return Shard(mesh, _map_specs(lambda path, s: dim(s), specs), gathers)
+
+
+def _map_specs(fn, specs: Any, path=()) -> Any:
+    """``fn(path, spec)`` over a tree of :class:`~repro_torch.dist.sharding.P`
+    (a ``P`` is a tuple, so it is a leaf here)."""
+    from repro_torch.dist.sharding import P
+    if isinstance(specs, P):
+        return fn(path, specs)
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v, path + (str(k),))
+                for k, v in specs.items()}
+    return type(specs)(_map_specs(fn, v, path + (str(i),))
+                       for i, v in enumerate(specs))
+
+
+#: the leaves a layer reads whole under a :class:`Shard` (``Shard.get``):
+#: norm scales, biases, the MoE router, the SSM's conv and decay leaves
+READ_WHOLE = frozenset({"scale", "b", "bq", "bk", "bv", "router", "conv_w",
+                        "conv_b", "A_log", "D", "dt_bias"})
+
+
+def read_whole(path, dim: Optional[int]) -> bool:
+    """Whether the layers read the leaf at ``path``, split on its
+    unstacked ``dim``, whole: its name is in :data:`READ_WHOLE`, or it is
+    an encoder layer's leaf split on the layer axis (``Shard.entry``
+    gathers it)."""
+    if dim is None:
+        return False
+    return path[-1] in READ_WHOLE or ("encoder" in path and dim == 0)
+
+
+def serving_specs(specs: Any, lead: int = 0) -> Any:
+    """The serving layout of parameters laid out by ``specs``
+    (``param_shardings``, or ``ensemble_param_shardings`` with ``lead =
+    1``): the same specs with every leaf the layers read whole
+    (:func:`read_whole`) replicated over ``model``.
+
+    Args:
+      specs: a tree of ``P``.
+      lead: stacked axes in front of each leaf (the replica axis).
+
+    Returns:
+      A tree of ``P``.
     """
     from repro_torch.dist.sharding import P, model_dim
 
-    def dims(s):
-        if isinstance(s, P):
-            return model_dim(s)
-        if isinstance(s, dict):
-            return {k: dims(v) for k, v in s.items()}
-        return type(s)(dims(v) for v in s)
+    def fix(path, s):
+        d = model_dim(s)
+        if d is None or not read_whole(path, d - lead):
+            return s
+        return P(*(None if i == d else e for i, e in enumerate(s)))
 
-    return Shard(mesh, dims(specs))
+    return _map_specs(fix, specs)
 
 
 def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,

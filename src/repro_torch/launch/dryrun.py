@@ -34,7 +34,14 @@ else in the port it says so here:
   param_gathers     per parameter leaf (tree path) the all-gathers whose
                     input is that leaf's slice, and their axis: the split
                     forward gathers only the leaves it needs whole at
-                    their use (``RecordingMesh.gathers``)
+                    their use (``RecordingMesh.gathers``); the serving
+                    steps gather none
+  serve_layout      (prefill and decode) ``{share, whole, read_whole}``,
+                    the bytes of the rank's parameters in the serving
+                    layout, of its replicas (or model) whole, and what
+                    keeping the leaves a layer reads whole adds to the
+                    ``param_shardings`` slices
+                    (``serve_layout_bytes``)
   hlo_lines         the number of ATen ops traced
   lower_s/compile_s the seconds to build the step and its arguments, and
                     to trace it
@@ -90,8 +97,8 @@ from repro_torch.dist.mesh import (COMM_KINDS, _count_comm, _zero_comm,
                                    mesh_axis_sizes)
 
 __all__ = ["HBM_BW", "NET_BW", "PEAK_FLOPS_BF16", "PEAK_FLOPS_FP32",
-           "RecordingMesh", "model_flops", "run_one", "trace_serve_step",
-           "trace_step", "trace_train_step"]
+           "RecordingMesh", "model_flops", "run_one", "serve_layout_bytes",
+           "trace_serve_step", "trace_step", "trace_train_step"]
 
 #: H100 SXM5 80GB data-sheet figures at 700 W (see the module docstring)
 HBM_BW = 3.35e12             # bytes/s
@@ -389,16 +396,49 @@ def roofline(flops: float, bytes_accessed: float, coll_bytes: float,
 # one (arch x shape)
 # ---------------------------------------------------------------------------
 
-def _local_replicas(tree, n: int, mesh):
-    """A replica-stacked ``meta`` tree cut to this rank's replicas (each
-    replica whole: the serving steps have no tensor-parallel decode)."""
-    from repro_torch.core.pytree import tree_map
-    from repro_torch.dist.sharding import replica_rows
-    rows, _ = replica_rows(n, mesh)
-    count = len(range(n)[rows])
-    return tree_map(lambda x: torch.empty((count,) + tuple(x.shape[1:]),
-                                          dtype=x.dtype, device="meta"),
-                    tree)
+def _share(cfg, mesh, n_replicas: Optional[int] = None):
+    """``(meta tree, specs)``: this rank's parameter slices in the serving
+    layout (``dist.serve.serve_specs``: ``param_shardings``, or with
+    ``n_replicas`` the ``ensemble_param_shardings`` share of its
+    replicas, the leaves a layer reads whole kept whole)."""
+    from repro_torch.dist.serve import serve_specs
+    from repro_torch.launch import specs as S
+    if n_replicas is None:
+        params, _ = S.param_specs(cfg, mesh)
+    else:
+        params, _ = S.ensemble_param_specs(cfg, mesh, n_replicas)
+    specs = serve_specs(cfg, mesh, n_replicas)
+    return S.local_tree(params, specs, mesh), specs
+
+
+def serve_layout_bytes(cfg, mesh, n_replicas: Optional[int] = None
+                       ) -> Dict[str, int]:
+    """What a rank's parameters take in the serving layout: ``share`` (its
+    slices), ``whole`` (its replicas whole, as the port held them before
+    the split forward; one model without ``n_replicas``) and
+    ``read_whole`` (what keeping the leaves a layer reads whole adds to
+    the ``ensemble_param_shardings`` / ``param_shardings`` slices)."""
+    from repro_torch.dist.sharding import _spec_leaves, model_dim
+    from repro_torch.launch import specs as S
+    local, specs = _share(cfg, mesh, n_replicas)
+    if n_replicas is None:
+        whole, rule = S.param_specs(cfg, mesh)
+    else:
+        whole, rule = S.ensemble_param_specs(cfg, mesh, n_replicas)
+    model = mesh_axis_sizes(mesh).get("model", 1)
+    rows = 1
+    if n_replicas is not None:
+        from repro_torch.dist.sharding import replica_rows
+        rows = len(range(n_replicas)[replica_rows(n_replicas, mesh)[0]])
+    share = sum(_nbytes(x) for x in tree_leaves(local))
+    full = sum(_nbytes(x) for x in tree_leaves(whole))
+    if n_replicas is not None:
+        full = full // n_replicas * rows
+    added = sum(_nbytes(x) * (model - 1) // model
+                for x, a, b in zip(tree_leaves(local), _spec_leaves(rule),
+                                   _spec_leaves(specs))
+                if model_dim(a) is not None and model_dim(b) is None)
+    return {"share": share, "whole": full, "read_whole": added}
 
 
 def _meta(x) -> torch.Tensor:
@@ -466,8 +506,12 @@ def trace_serve_step(cfg, spec, mesh, n_replicas: int, batch: int,
                      cache_len: int, pos=None) -> Dict[str, Any]:
     """:func:`trace_step` of one rank's robust decode step (or verify
     step, with ``spec.speculative_k >= 1``), as ``ServingEngine(mesh=)``
-    runs it: the rank's replicas (``sharding.replica_rows``, each whole),
-    their ``batch``-slot caches, every slot's token.
+    runs it: the rank's share of the ensemble (its replicas' ``model``
+    slices in the serving layout, ``serve_robust.ensemble_share``'s
+    shapes), their ``batch``-slot caches (whole along ``model``), every
+    slot's token.  The share's leaves are watched
+    (:meth:`RecordingMesh.watch`), so ``gathers`` names any parameter
+    leaf the step all-gathers.
 
     Args:
       cfg: every replica's model configuration.
@@ -487,11 +531,11 @@ def trace_serve_step(cfg, spec, mesh, n_replicas: int, batch: int,
                                                make_robust_serve_step,
                                                make_robust_verify_step)
     from repro_torch.launch import specs as S
-    eparams, _ = S.ensemble_param_specs(cfg, mesh, n_replicas)
-    cache, _ = S.ensemble_cache_specs(cfg, n_replicas, batch, cache_len,
-                                      mesh)
-    eparams = _local_replicas(eparams, n_replicas, mesh)
-    cache = _local_replicas(cache, n_replicas, mesh)
+    eparams, _ = _share(cfg, mesh, n_replicas)
+    mesh.watch(eparams)
+    cache, cache_sh = S.ensemble_cache_specs(cfg, n_replicas, batch,
+                                             cache_len, mesh)
+    cache = S.local_tree(cache, cache_sh, mesh)
     agg_state = init_ensemble_state(spec, n_replicas, batch, cfg.vocab_size,
                                     device="meta", mesh=mesh)
     k = int(spec.speculative_k or 0)
@@ -594,7 +638,6 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     sharding.LEGACY_RULES = legacy_before or legacy_sharding
     moe.EXPERT_WEIGHT_GATHER = gather_before or expert_gather
     try:
-        params, _ = S.param_specs(cfg, mesh)
         inputs, in_sh = S.input_specs(cfg, shape_name, mesh)
         if shape.kind == "train":
             common = dict(f=3, gar=gar, attack=attack, agg_dtype=agg_dtype,
@@ -613,8 +656,9 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                 cfg, DistByzantineSpec(**common), opt, mesh, inputs,
                 asynchronous=async_tau is not None, impl=impl)
         elif shape.kind == "decode" and serve_gar:
-            # robust ensemble decode: the rank's replicas (whole), their
-            # caches, every slot's token; the logits gathered over data
+            # robust ensemble decode: the rank's share of its replicas,
+            # their caches, every slot's token; the logits gathered over
+            # data
             n_rep = serve_replicas or quorum(serve_gar, serve_f)
             sspec = DistByzantineSpec(f=serve_f, gar=serve_gar,
                                       agg_dtype=agg_dtype,
@@ -624,24 +668,29 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             record.update(serve_gar=serve_gar, serve_f=serve_f,
                           serve_replicas=n_rep,
                           serve_speculative_k=serve_speculative_k)
+            record["serve_layout"] = serve_layout_bytes(cfg, mesh, n_rep)
             record["lower_s"] = round(time.perf_counter() - t0, 1)
             traced = trace_serve_step(cfg, sspec, mesh, n_rep,
                                       shape.global_batch, shape.seq_len)
         else:
+            # each rank runs the step on its slice of the batch and its
+            # param_shardings slices (the serving layout), as the
+            # reference's jit shardings place them
+            local, _ = _share(cfg, mesh)
+            mesh.watch(local)
             if shape.kind == "prefill":
-                # no mesh= here, as in the reference: each rank runs the
-                # prefill on its slice of the batch, whole parameters
-                step = make_prefill_step(cfg, impl=impl)
+                step = make_prefill_step(cfg, impl=impl, mesh=mesh)
                 args = tuple(S.local_tree(inputs[k], in_sh[k], mesh)
                              for k in ("tokens", "extra") if k in inputs)
-                args = (params,) + args
-            else:  # decode: each rank decodes its slice of the batch
+                args = (local,) + args
+            else:  # decode
                 cache, cache_sh = S.cache_specs(cfg, shape.global_batch,
                                                 shape.seq_len, mesh)
-                step = make_serve_step(cfg)
-                args = (params, S.local_tree(cache, cache_sh, mesh),
+                step = make_serve_step(cfg, mesh=mesh)
+                args = (local, S.local_tree(cache, cache_sh, mesh),
                         S.local_tree(inputs["token"], in_sh["token"], mesh),
                         inputs["pos"])
+            record["serve_layout"] = serve_layout_bytes(cfg, mesh)
             record["lower_s"] = round(time.perf_counter() - t0, 1)
             traced = trace_step(step, *args, mesh=mesh)
         record["compile_s"] = round(traced["seconds"], 1)

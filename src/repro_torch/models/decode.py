@@ -11,6 +11,21 @@ positions; sliding-window and chunked slots keep a ring of ``window`` /
 Every function here returns new caches and never writes one in place
 (each write is an out-of-place ``index_put``), so the serving layer can
 run the replicas of an ensemble through ``torch.func.vmap``.
+
+``prefill``, ``decode_step`` and ``verify_step`` take ``shard=`` (a
+``repro_torch.dist.tensor_parallel.Shard``, ``None`` on one device): the
+parameters are then one rank's slices split over a mesh's ``model``
+axis, in the serving layout (``tensor_parallel.serving_specs``: the
+leaves a layer reads whole are whole, so no step gathers a parameter).
+The projections run through the training forward's split products
+(``transformer._projections`` / ``_out_proj``, ``layers.ffn``,
+``moe.moe_ffn``), so q, k and v come out whole on every rank and the
+caches keep the reference's layout, whole along ``model``
+(``cache_shardings`` never splits KV heads); decode attention runs whole
+on every rank.  When the output table splits on the vocabulary the
+logits are this rank's vocabulary columns (:func:`logits_split`).  The
+collectives have ``vmap`` rules, so the replicas of a rank's ensemble
+share each one.
 """
 from __future__ import annotations
 
@@ -26,11 +41,13 @@ from repro_torch.models.attention import (decode_attention, rope,
                                           verify_attention)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _dtype
-from repro_torch.models.transformer import (_apply_layer, _proj, _run_encoder,
-                                            _stack_len, _stacked)
+from repro_torch.models.transformer import (_apply_layer, _entry, _head,
+                                            _out_proj, _proj, _projections,
+                                            _run_encoder, _stack_len,
+                                            _stacked, _sub, logits_split)
 
-__all__ = ["decode_step", "init_cache", "prefill", "slot_cache_len",
-           "verify_step", "verify_supported"]
+__all__ = ["decode_step", "init_cache", "logits_split", "prefill",
+           "slot_cache_len", "verify_step", "verify_supported"]
 
 _RING_SLOTS = ("swa", "chunked")
 
@@ -119,62 +136,73 @@ def _write(cache: torch.Tensor, idx: torch.Tensor,
     return cache.index_put((bidx, idx.long()), new.to(cache.dtype))
 
 
-def _ffn_part(p, x, cfg: ModelConfig) -> torch.Tensor:
+def _norm(p, key, x, shard) -> torch.Tensor:
+    return layers.rmsnorm(p[key], x, shard=_sub(shard, key))
+
+
+def _ffn_part(p, x, cfg: ModelConfig, shard=None) -> torch.Tensor:
     if "ffn" in p:
-        return x + layers.ffn(p["ffn"], layers.rmsnorm(p["ln_f"], x),
-                              cfg.ffn_act)
+        return x + layers.ffn(p["ffn"], _norm(p, "ln_f", x, shard),
+                              cfg.ffn_act, shard=_sub(shard, "ffn"))
     if "moe" in p:
-        y, _ = moe.moe_ffn(p["moe"], layers.rmsnorm(p["ln_f"], x),
+        y, _ = moe.moe_ffn(p["moe"], _norm(p, "ln_f", x, shard),
                            top_k=cfg.moe_top_k, act=cfg.ffn_act,
                            capacity_factor=cfg.capacity_factor,
-                           impl=cfg.moe_impl)
+                           impl=cfg.moe_impl, shard=_sub(shard, "moe"))
         return x + y
     return x
 
 
-def _cross_part(p, c, x, cfg: ModelConfig) -> torch.Tensor:
+def _q_proj(p, h, shard) -> torch.Tensor:
+    """The query projection alone (whole on every rank)."""
+    if shard is None:
+        return _proj(h, p, "wq", "bq")
+    y = shard.matmul(h, p, "wq")
+    return y + shard.get(p, "bq") if "bq" in p else y
+
+
+def _cross_part(p, c, x, cfg: ModelConfig, shard=None) -> torch.Tensor:
     """An ``xattn`` slot's cross-attention over its cached encoder keys."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    h = layers.rmsnorm(p["ln_x"], x)
-    q = _proj(h, p["xatt"], "wq", "bq").reshape(b, s, cfg.n_heads, hd)
+    h = _norm(p, "ln_x", x, shard)
+    xs = _sub(shard, "xatt")
+    q = _q_proj(p["xatt"], h, xs).reshape(b, s, cfg.n_heads, hd)
     o = verify_attention(q, c["xk"], c["xv"])
-    return x + o.reshape(b, s, cfg.n_heads * hd) @ p["xatt"]["wo"]
+    return x + _out_proj(o.reshape(b, s, cfg.n_heads * hd), p["xatt"], xs)
 
 
-def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params, cfg: ModelConfig, x: torch.Tensor,
+            shard=None) -> torch.Tensor:
     """Final norm, the output projection and the soft cap (the serving
     path keeps the parameters' dtype, as the reference's does)."""
-    x = layers.rmsnorm(params["final_norm"], x)
-    if cfg.tie_embeddings:
-        logits = layers.unembed(params["embed"], x)
-    else:
-        logits = layers.linear(params["lm_head"], x)
-    if cfg.logit_softcap > 0:
-        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits
+    x = _norm(params, "final_norm", x, shard)
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    return _head(params[head], x, cfg, shard)
 
 
 def _run_layers(params, cfg: ModelConfig, cache: dict, x: torch.Tensor,
-                layer_fn):
-    """``layer_fn(p, c, x, slot) -> (new_c, x)`` over the periods (in
-    order, the period caches restacked) and then the tail."""
+                layer_fn, shard=None):
+    """``layer_fn(p, c, x, slot, shard) -> (new_c, x)`` over the periods
+    (in order, the period caches restacked) and then the tail."""
     period_caches = []
     periods = params["periods"]
     for i in range(_stack_len(periods)):
-        period_p = _stacked(periods, i)
+        period_p, period_s = _entry(periods, i, _sub(shard, "periods"))
         period_c = _stacked(cache["periods"], i)
         newc = {}
         for j, slot in enumerate(cfg.layer_pattern):
             newc[f"s{j}"], x = layer_fn(period_p[f"s{j}"],
-                                        period_c[f"s{j}"], x, slot)
+                                        period_c[f"s{j}"], x, slot,
+                                        _sub(period_s, f"s{j}"))
         period_caches.append(newc)
     new_periods = tree_map(lambda *xs: torch.stack(xs), *period_caches)
     new_tail = {}
     for t in range(cfg.n_tail):
         slot = cfg.slot(cfg.n_periods * cfg.period + t)
-        new_tail[f"t{t}"], x = layer_fn(params["tail"][f"t{t}"],
-                                        cache["tail"][f"t{t}"], x, slot)
+        new_tail[f"t{t}"], x = layer_fn(
+            params["tail"][f"t{t}"], cache["tail"][f"t{t}"], x, slot,
+            _sub(_sub(shard, "tail"), f"t{t}"))
     return x, {"periods": new_periods, "tail": new_tail}
 
 
@@ -182,16 +210,18 @@ def _run_layers(params, cfg: ModelConfig, cache: dict, x: torch.Tensor,
 # decode step
 # ---------------------------------------------------------------------------
 
-def _decode_attn_slot(p, c, x, cfg: ModelConfig, slot: str, pos):
+def _decode_attn_slot(p, c, x, cfg: ModelConfig, slot: str, pos,
+                      shard=None):
     """One token per sequence, each at its own position ``pos[b]``:
     rope and the cache write use it (ring slots at ``pos % L``, full
     slots at ``min(pos, L - 1)``)."""
     b = x.shape[0]
     hd = cfg.head_dim
-    h = layers.rmsnorm(p["ln"], x)
-    q = _proj(h, p["attn"], "wq", "bq").reshape(b, 1, cfg.n_heads, hd)
-    k = _proj(h, p["attn"], "wk", "bk").reshape(b, 1, cfg.n_kv_heads, hd)
-    v = _proj(h, p["attn"], "wv", "bv").reshape(b, 1, cfg.n_kv_heads, hd)
+    h = _norm(p, "ln", x, shard)
+    q, k, v = _projections(p["attn"], h, h, _sub(shard, "attn"))
+    q = q.reshape(b, 1, cfg.n_heads, hd)
+    k = k.reshape(b, 1, cfg.n_kv_heads, hd)
+    v = v.reshape(b, 1, cfg.n_kv_heads, hd)
     if slot != "attn_nope":
         posv = pos[:, None]                     # (B, 1): rope per sequence
         q = rope(q, posv, cfg.rope_theta)
@@ -205,27 +235,29 @@ def _decode_attn_slot(p, c, x, cfg: ModelConfig, slot: str, pos):
     vc = _write(c["v"], idx[:, None], v[:, 0:1])
     valid = torch.clamp_max(pos + 1, length)
     o = decode_attention(q, kc, vc, valid_len=valid)
-    y = o.reshape(b, 1, cfg.n_heads * hd) @ p["attn"]["wo"]
+    y = _out_proj(o.reshape(b, 1, cfg.n_heads * hd), p["attn"],
+                  _sub(shard, "attn"))
     newc = dict(c)
     newc["k"], newc["v"] = kc, vc
     return newc, y
 
 
-def _decode_layer(p, c, x, cfg: ModelConfig, slot: str, pos):
+def _decode_layer(p, c, x, cfg: ModelConfig, slot: str, pos, shard=None):
     if slot == "mamba":
         newc, y = ssm.mamba_decode_step(p["mix"], c,
-                                        layers.rmsnorm(p["ln"], x), cfg)
+                                        _norm(p, "ln", x, shard), cfg,
+                                        shard=_sub(shard, "mix"))
         x = x + y
     else:
-        newc, y = _decode_attn_slot(p, c, x, cfg, slot, pos)
+        newc, y = _decode_attn_slot(p, c, x, cfg, slot, pos, shard)
         x = x + y
         if slot == "xattn":
-            x = _cross_part(p, c, x, cfg)
-    return newc, _ffn_part(p, x, cfg)
+            x = _cross_part(p, c, x, cfg, shard)
+    return newc, _ffn_part(p, x, cfg, shard)
 
 
 def decode_step(params, cfg: ModelConfig, cache: dict, token: torch.Tensor,
-                pos) -> Tuple[torch.Tensor, dict]:
+                pos, shard=None) -> Tuple[torch.Tensor, dict]:
     """One token for every sequence of the batch.
 
     Args:
@@ -236,16 +268,20 @@ def decode_step(params, cfg: ModelConfig, cache: dict, token: torch.Tensor,
       pos: a scalar, or ``(B,)`` int32 per-sequence positions
         (continuous batching: each sequence ropes and writes its cache
         at its own index).
+      shard: ``None``, or the ``Shard`` of ``params`` (this rank's
+        slices in the serving layout; see the module docstring).
 
     Returns:
-      ``(logits (B, 1, V), new_cache)``.
+      ``(logits (B, 1, V), new_cache)``; ``V`` is this rank's columns
+      when :func:`logits_split`.
     """
-    x = layers.embed(params["embed"], token)
+    x = layers.embed(params["embed"], token, shard=_sub(shard, "embed"))
     pos = _positions(pos, x.shape[0], x.device)
     x, new_cache = _run_layers(
         params, cfg, cache, x,
-        lambda p, c, x, slot: _decode_layer(p, c, x, cfg, slot, pos))
-    return _logits(params, cfg, x), new_cache
+        lambda p, c, x, slot, s: _decode_layer(p, c, x, cfg, slot, pos, s),
+        shard)
+    return _logits(params, cfg, x, shard), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +318,8 @@ def verify_supported(cfg: ModelConfig) -> Tuple[bool, str]:
     return True, ""
 
 
-def _verify_attn_slot(p, c, x, cfg: ModelConfig, slot: str, pos):
+def _verify_attn_slot(p, c, x, cfg: ModelConfig, slot: str, pos,
+                      shard=None):
     """One attention layer over a ``(B, S)`` block, token ``j`` at
     position ``pos + j``: all S keys are written first, then each query
     attends its own causal prefix."""
@@ -290,10 +327,11 @@ def _verify_attn_slot(p, c, x, cfg: ModelConfig, slot: str, pos):
     hd = cfg.head_dim
     qpos = pos[:, None] + torch.arange(s, dtype=torch.int32,
                                        device=x.device)[None, :]  # (B, S)
-    h = layers.rmsnorm(p["ln"], x)
-    q = _proj(h, p["attn"], "wq", "bq").reshape(b, s, cfg.n_heads, hd)
-    k = _proj(h, p["attn"], "wk", "bk").reshape(b, s, cfg.n_kv_heads, hd)
-    v = _proj(h, p["attn"], "wv", "bv").reshape(b, s, cfg.n_kv_heads, hd)
+    h = _norm(p, "ln", x, shard)
+    q, k, v = _projections(p["attn"], h, h, _sub(shard, "attn"))
+    q = q.reshape(b, s, cfg.n_heads, hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd)
     if slot != "attn_nope":
         q = rope(q, qpos, cfg.rope_theta)
         k = rope(k, qpos, cfg.rope_theta)
@@ -307,22 +345,23 @@ def _verify_attn_slot(p, c, x, cfg: ModelConfig, slot: str, pos):
     vc = _write(c["v"], idx, v)
     q_valid = torch.clamp_max(qpos + 1, length)
     o = verify_attention(q, kc, vc, q_valid=q_valid)
-    y = o.reshape(b, s, cfg.n_heads * hd) @ p["attn"]["wo"]
+    y = _out_proj(o.reshape(b, s, cfg.n_heads * hd), p["attn"],
+                  _sub(shard, "attn"))
     newc = dict(c)
     newc["k"], newc["v"] = kc, vc
     return newc, y
 
 
-def _verify_layer(p, c, x, cfg: ModelConfig, slot: str, pos):
-    newc, y = _verify_attn_slot(p, c, x, cfg, slot, pos)
+def _verify_layer(p, c, x, cfg: ModelConfig, slot: str, pos, shard=None):
+    newc, y = _verify_attn_slot(p, c, x, cfg, slot, pos, shard)
     x = x + y
     if slot == "xattn":
-        x = _cross_part(p, c, x, cfg)
-    return newc, _ffn_part(p, x, cfg)
+        x = _cross_part(p, c, x, cfg, shard)
+    return newc, _ffn_part(p, x, cfg, shard)
 
 
 def verify_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
-                pos) -> Tuple[torch.Tensor, dict]:
+                pos, shard=None) -> Tuple[torch.Tensor, dict]:
     """A causal block of ``S`` tokens in one forward pass.
 
     ``tokens[:, j]`` is consumed at position ``pos + j`` and
@@ -336,17 +375,21 @@ def verify_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
       cache: the decode caches.
       tokens: ``(B, S)`` integer tokens.
       pos: a scalar, or ``(B,)`` int32 position of ``tokens[:, 0]``.
+      shard: ``None``, or the ``Shard`` of ``params`` (as
+        :func:`decode_step`'s).
 
     Returns:
       ``(logits (B, S, V), new_cache)`` with the block's ``S`` keys and
-      values written into every attention layer's cache.
+      values written into every attention layer's cache; ``V`` as
+      :func:`decode_step`'s.
     """
-    x = layers.embed(params["embed"], tokens)
+    x = layers.embed(params["embed"], tokens, shard=_sub(shard, "embed"))
     pos = _positions(pos, x.shape[0], x.device)
     x, new_cache = _run_layers(
         params, cfg, cache, x,
-        lambda p, c, x, slot: _verify_layer(p, c, x, cfg, slot, pos))
-    return _logits(params, cfg, x), new_cache
+        lambda p, c, x, slot, s: _verify_layer(p, c, x, cfg, slot, pos, s),
+        shard)
+    return _logits(params, cfg, x, shard), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -354,21 +397,18 @@ def verify_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _prefill_slot(p, x, cfg: ModelConfig, slot: str, positions, enc_out,
-                  cache_len: int, impl: str):
+                  cache_len: int, impl: str, shard=None):
     """One layer over the whole sequence, and its filled cache."""
-    b, s, _ = x.shape
-    hd = cfg.head_dim
+    s = x.shape[1]
     if slot == "mamba":
-        y, cache = ssm.mamba_prefill(p["mix"], layers.rmsnorm(p["ln"], x),
-                                     cfg)
-        return _ffn_part(p, x + y, cfg), cache
-    # attention slots: k and v again for the cache (cheap beside the
-    # attention itself)
-    h = layers.rmsnorm(p["ln"], x)
-    k = _proj(h, p["attn"], "wk", "bk").reshape(b, s, cfg.n_kv_heads, hd)
-    v = _proj(h, p["attn"], "wv", "bv").reshape(b, s, cfg.n_kv_heads, hd)
-    if slot != "attn_nope":
-        k = rope(k, positions, cfg.rope_theta)
+        y, cache = ssm.mamba_prefill(p["mix"], _norm(p, "ln", x, shard),
+                                     cfg, shard=_sub(shard, "mix"))
+        return _ffn_part(p, x + y, cfg, shard), cache
+    # attention slots: the layer hands back its keys and values
+    kv = {}
+    x, _ = _apply_layer(p, x, cfg, slot, positions, enc_out, impl, shard,
+                        keep=kv)
+    k, v = kv["k"], kv["v"]
     length = slot_cache_len(cfg, slot, cache_len)
     if s >= length:
         kc, vc = k[:, s - length:], v[:, s - length:]
@@ -377,18 +417,13 @@ def _prefill_slot(p, x, cfg: ModelConfig, slot: str, positions, enc_out,
         vc = F.pad(v, (0, 0, 0, 0, 0, length - s))
     cache = {"k": kc, "v": vc}
     if slot == "xattn":
-        se = enc_out.shape[1]
-        cache["xk"] = _proj(enc_out, p["xatt"], "wk", "bk").reshape(
-            b, se, cfg.n_kv_heads, hd)
-        cache["xv"] = _proj(enc_out, p["xatt"], "wv", "bv").reshape(
-            b, se, cfg.n_kv_heads, hd)
-    x, _ = _apply_layer(p, x, cfg, slot, positions, enc_out, impl)
+        cache["xk"], cache["xv"] = kv["xk"], kv["xv"]
     return x, cache
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
             extra: Optional[torch.Tensor] = None, cache_len: int = 0,
-            impl: str = "auto") -> Tuple[torch.Tensor, dict]:
+            impl: str = "auto", shard=None) -> Tuple[torch.Tensor, dict]:
     """Full-sequence forward that also returns filled decode caches.
 
     Args:
@@ -399,15 +434,19 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
         ``(B, S_enc, d_model)``.
       cache_len: positions of a full attention cache (``0``: ``S``).
       impl: attention path, ``"auto"`` | ``"naive"`` | ``"blockwise"``.
+      shard: ``None``, or the ``Shard`` of ``params`` (as
+        :func:`decode_step`'s; attention then splits over ``model`` as
+        the training forward's does, ``cfg.attn_shard``).
 
     Returns:
-      ``(logits (B, S, V), cache)`` in :func:`init_cache`'s layout.
+      ``(logits (B, S, V), cache)`` in :func:`init_cache`'s layout;
+      ``V`` as :func:`decode_step`'s.
     """
     b, s = tokens.shape
     cache_len = cache_len or s
-    x = layers.embed(params["embed"], tokens)
+    x = layers.embed(params["embed"], tokens, shard=_sub(shard, "embed"))
     if cfg.arch_type == "audio":
-        enc_out = _run_encoder(params, cfg, extra, impl)
+        enc_out = _run_encoder(params, cfg, extra, impl, shard, remat=False)
     elif cfg.arch_type == "vlm":
         enc_out = extra
     else:
@@ -417,19 +456,19 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     period_caches = []
     periods = params["periods"]
     for i in range(_stack_len(periods)):
-        period_p = _stacked(periods, i)
+        period_p, period_s = _entry(periods, i, _sub(shard, "periods"))
         caches = {}
         for j, slot in enumerate(cfg.layer_pattern):
             x, caches[f"s{j}"] = _prefill_slot(
                 period_p[f"s{j}"], x, cfg, slot, positions, enc_out,
-                cache_len, impl)
+                cache_len, impl, _sub(period_s, f"s{j}"))
         period_caches.append(caches)
     tail_caches = {}
     for t in range(cfg.n_tail):
         slot = cfg.slot(cfg.n_periods * cfg.period + t)
         x, tail_caches[f"t{t}"] = _prefill_slot(
             params["tail"][f"t{t}"], x, cfg, slot, positions, enc_out,
-            cache_len, impl)
-    return _logits(params, cfg, x), {
+            cache_len, impl, _sub(_sub(shard, "tail"), f"t{t}"))
+    return _logits(params, cfg, x, shard), {
         "periods": tree_map(lambda *xs: torch.stack(xs), *period_caches),
         "tail": tail_caches}

@@ -9,11 +9,13 @@ chunked form (:func:`mamba_prefill` keeps the final state and the conv
 history) and decodes one token at a time with the exact recurrent form
 (:func:`mamba_decode_step`), whose state has a constant size.
 
-:func:`mamba_forward` takes an optional ``shard``
-(``repro_torch.dist.tensor_parallel.Shard``, the multi-rank train
-step): the projections then run on this rank's slices whole on every
-rank (``Shard.matmul``), the conv, decay and norm leaves gathered on
-use.
+:func:`mamba_forward`, :func:`mamba_prefill` and
+:func:`mamba_decode_step` take an optional ``shard``
+(``repro_torch.dist.tensor_parallel.Shard``, the multi-rank train step
+and the tensor-parallel serving steps): the projections then run on
+this rank's slices whole on every rank (``Shard.matmul``), the conv,
+decay and norm leaves gathered on use (the serving layout holds them
+whole, so serving gathers none).
 """
 from __future__ import annotations
 
@@ -226,7 +228,8 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg,
     return _mamba_sequence(p, x, cfg, chunk, shard)[0]
 
 
-def mamba_prefill(p: dict, x: torch.Tensor, cfg, chunk: int = 128):
+def mamba_prefill(p: dict, x: torch.Tensor, cfg, chunk: int = 128,
+                  shard=None):
     """:func:`mamba_forward` that also returns the decode cache.
 
     Args:
@@ -234,6 +237,7 @@ def mamba_prefill(p: dict, x: torch.Tensor, cfg, chunk: int = 128):
       x: ``(B, S, D)`` normalized inputs.
       cfg: the model configuration.
       chunk: the SSD chunk length.
+      shard: ``None``, or the ``Shard`` of ``p``.
 
     Returns:
       ``(y (B, S, D), cache)``: ``cache["state"]`` is the final fp32 SSM
@@ -241,7 +245,7 @@ def mamba_prefill(p: dict, x: torch.Tensor, cfg, chunk: int = 128):
       inputs, zero-padded in front when ``S < ssm_conv - 1``.
     """
     s = x.shape[1]
-    out, xbc, h_final = _mamba_sequence(p, x, cfg, chunk)
+    out, xbc, h_final = _mamba_sequence(p, x, cfg, chunk, shard)
     k = p["conv_w"].shape[0]
     hist = F.pad(xbc, (0, 0, k - 1, 0))[:, s:s + k - 1]
     return out, {"conv": hist, "state": h_final}
@@ -262,7 +266,8 @@ def init_mamba_cache(cfg, batch: int, dtype, device="cuda") -> dict:
     }
 
 
-def mamba_decode_step(p: dict, cache: dict, x1: torch.Tensor, cfg):
+def mamba_decode_step(p: dict, cache: dict, x1: torch.Tensor, cfg,
+                      shard=None):
     """One token through the block in its recurrent form.
 
     Args:
@@ -270,6 +275,8 @@ def mamba_decode_step(p: dict, cache: dict, x1: torch.Tensor, cfg):
       cache: ``{"conv", "state"}`` (:func:`init_mamba_cache`).
       x1: ``(B, 1, D)`` normalized input.
       cfg: the model configuration.
+      shard: ``None``, or the ``Shard`` of ``p`` (the splits of
+        :func:`mamba_forward`'s).
 
     Returns:
       ``(new_cache, y (B, 1, D))``; the cache is new, never written in
@@ -279,7 +286,11 @@ def mamba_decode_step(p: dict, cache: dict, x1: torch.Tensor, cfg):
     d_in = cfg.ssm_expand * d
     n, h, hd = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
 
-    proj = x1[:, 0] @ p["in_proj"]                     # (B, ...)
+    if shard is not None:
+        p = dict(p, **{k: shard.get(p, k) for k in
+                       ("conv_w", "conv_b", "A_log", "D", "dt_bias")})
+    proj = (x1[:, 0] @ p["in_proj"] if shard is None      # (B, ...)
+            else shard.matmul(x1[:, 0], p, "in_proj"))
     z, xbc, dt = _split_proj(proj, d_in, n, h)
 
     hist = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)
@@ -298,6 +309,10 @@ def mamba_decode_step(p: dict, cache: dict, x1: torch.Tensor, cfg):
         C_.to(torch.float32))
     y = y + xs.to(torch.float32) * p["D"][None, :, None]
     y = y.reshape(b, d_in).to(x1.dtype)
-    y = layers.rmsnorm(p["norm"], y * F.silu(z))
-    out = (y @ p["out_proj"])[:, None, :]
+    if shard is None:
+        y = layers.rmsnorm(p["norm"], y * F.silu(z))
+        out = (y @ p["out_proj"])[:, None, :]
+    else:
+        y = layers.rmsnorm(p["norm"], y * F.silu(z), shard=shard["norm"])
+        out = shard.matmul(y, p, "out_proj")[:, None, :]
     return {"conv": new_conv, "state": new_state}, out

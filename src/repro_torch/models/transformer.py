@@ -22,7 +22,8 @@ reference's ``_attn_constrain``: with ``cfg.attn_shard == "batch"``
 each ``model`` rank attends for ``B / model`` of the sequences, or,
 when ``model`` does not divide the batch, for ``S / model`` of every
 sequence's queries; otherwise every rank runs the whole attention.
-The serving path (``prefill``, ``decode_step``) is ``models/decode.py``.
+The serving path (``prefill``, ``decode_step``, ``verify_step``, with
+the same ``shard=``) is ``models/decode.py``.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ from repro_torch.models.attention import attention, rope
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _dtype
 
-__all__ = ["forward", "init_model"]
+__all__ = ["forward", "init_model", "logits_split"]
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +208,10 @@ def _out_proj(o: torch.Tensor, p: dict, shard) -> torch.Tensor:
 
 
 def _self_attention(p, x, cfg: ModelConfig, slot: str, positions,
-                    impl: str, shard=None) -> torch.Tensor:
+                    impl: str, shard=None,
+                    keep: Optional[dict] = None) -> torch.Tensor:
+    """Self-attention; ``keep`` (a dict) receives the whole ``k`` (after
+    rope) and ``v``, ``(B, S, kv_heads, hd)``: the prefill's cache."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q, k, v = _projections(p, x, x, shard)
@@ -217,12 +221,17 @@ def _self_attention(p, x, cfg: ModelConfig, slot: str, positions,
     if slot != "attn_nope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    if keep is not None:
+        keep["k"], keep["v"] = k, v
     o = _attend(q, k, v, cfg, _KINDS[slot], impl, shard)
     return _out_proj(o.reshape(b, s, cfg.n_heads * hd), p, shard)
 
 
 def _cross_attention(p, x, enc_out, cfg: ModelConfig,
-                     impl: str, shard=None) -> torch.Tensor:
+                     impl: str, shard=None,
+                     keep: Optional[dict] = None) -> torch.Tensor:
+    """Cross-attention over ``enc_out``; ``keep`` receives its ``k`` and
+    ``v`` as ``xk`` and ``xv``."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     se = enc_out.shape[1]
@@ -230,12 +239,18 @@ def _cross_attention(p, x, enc_out, cfg: ModelConfig,
     q = q.reshape(b, s, cfg.n_heads, hd)
     k = k.reshape(b, se, cfg.n_kv_heads, hd)
     v = v.reshape(b, se, cfg.n_kv_heads, hd)
+    if keep is not None:
+        keep["xk"], keep["xv"] = k, v
     o = attention(q, k, v, kind="cross", impl=impl)
     return _out_proj(o.reshape(b, s, cfg.n_heads * hd), p, shard)
 
 
 def _apply_layer(p, x, cfg: ModelConfig, slot: str, positions, enc_out,
-                 impl: str, shard=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                 impl: str, shard=None,
+                 keep: Optional[dict] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer: ``(x, aux)`` after it; ``keep`` (a dict) receives an
+    attention slot's keys and values (see :func:`_self_attention`)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def norm(key):
@@ -246,10 +261,10 @@ def _apply_layer(p, x, cfg: ModelConfig, slot: str, positions, enc_out,
                                   shard=_sub(shard, "mix"))
     else:
         x = x + _self_attention(p["attn"], norm("ln"), cfg, slot, positions,
-                                impl, _sub(shard, "attn"))
+                                impl, _sub(shard, "attn"), keep)
         if slot == "xattn":
             x = x + _cross_attention(p["xatt"], norm("ln_x"), enc_out, cfg,
-                                     impl, _sub(shard, "xatt"))
+                                     impl, _sub(shard, "xatt"), keep)
     if "ffn" in p:
         x = x + layers.ffn(p["ffn"], norm("ln_f"), cfg.ffn_act,
                            shard=_sub(shard, "ffn"))
@@ -289,15 +304,18 @@ def _run(fn, shard, *args):
 
 
 def _run_encoder(params, cfg: ModelConfig, enc_embeds: torch.Tensor,
-                 impl: str, shard=None) -> torch.Tensor:
+                 impl: str, shard=None, remat: bool = True) -> torch.Tensor:
+    """The encoder stack; under a shard with each layer's activations
+    recomputed in the backward unless ``remat`` is off (serving runs no
+    backward)."""
     positions = torch.arange(enc_embeds.shape[1], device=enc_embeds.device)
     stack = params["encoder"]["layers"]
     enc = _sub(shard, "encoder")
     x = enc_embeds
     for i in range(_stack_len(stack)):
         lp, ls = _entry(stack, i, _sub(enc, "layers"))
-        x, _ = _run(_apply_layer, shard, lp, x, cfg, "bidir", positions,
-                    None, impl, ls)
+        x, _ = _run(_apply_layer, shard if remat else None, lp, x, cfg,
+                    "bidir", positions, None, impl, ls)
     return layers.rmsnorm(params["encoder"]["final_norm"], x,
                           shard=_sub(enc, "final_norm"))
 
@@ -310,6 +328,35 @@ def _period(period_p, x, aux, cfg: ModelConfig, positions, enc_out,
                             enc_out, impl, _sub(shard, f"s{j}"))
         aux = aux + a
     return x, aux
+
+
+def logits_split(cfg: ModelConfig, shard) -> bool:
+    """Whether the logits under ``shard`` are this rank's vocabulary
+    columns (the output table splits on the vocabulary), ``[index * V /
+    model, (index + 1) * V / model)`` of the whole; else they are whole
+    on every rank."""
+    if shard is None or shard.size == 1:
+        return False
+    if cfg.tie_embeddings:
+        return shard["embed"].dim("table") == 0
+    return shard["lm_head"].dim("w") == 1
+
+
+def _head(emb: dict, x: torch.Tensor, cfg: ModelConfig,
+          shard) -> torch.Tensor:
+    """The output projection of the final activations through ``emb``
+    (the tied embedding or ``lm_head``), soft-capped; this rank's
+    vocabulary columns when :func:`logits_split`, never gathered."""
+    if cfg.tie_embeddings:
+        logits = layers.unembed(emb, x, shard=_sub(shard, "embed"))
+    elif logits_split(cfg, shard):
+        logits = shard.copy(x) @ emb["w"]
+    else:
+        logits = layers.linear(emb, x, shard=_sub(shard, "lm_head"))
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -369,14 +416,4 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.logits_dtype == "bfloat16":
         x = x.to(torch.bfloat16)
         emb = tree_map(lambda w: w.to(torch.bfloat16), emb)
-    if cfg.tie_embeddings:
-        logits = layers.unembed(emb, x, shard=_sub(shard, head))
-    elif shard is not None and shard[head].dim("w") == 1:
-        # this rank's vocabulary columns, never gathered
-        logits = shard.copy(x) @ emb["w"]
-    else:
-        logits = layers.linear(emb, x, shard=_sub(shard, head))
-    if cfg.logit_softcap > 0:
-        c = cfg.logit_softcap
-        logits = c * torch.tanh(logits / c)
-    return logits, aux
+    return _head(emb, x, cfg, shard), aux

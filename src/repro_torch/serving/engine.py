@@ -29,11 +29,15 @@ The engine runs where its parameters live; host counters
 **Sharded mode** (``mesh=`` a rank's ``repro_torch.dist.mesh.Mesh``,
 ensemble mode only): every rank of the mesh runs the same engine on the
 same requests, so slots, positions, admissions and sampling are
-replicated host state.  A rank keeps its replicas (``data`` splits the
-ensemble where it divides, ``sharding.replica_rows``), each whole along
-``model``, their caches, the ``AggState`` of its vocabulary slice, and
-in speculative mode its own whole copy of the draft replica; the steps
-gather and aggregate over the mesh (``repro_torch.dist.serve_robust``).
+replicated host state.  A rank keeps its share of the ensemble as
+``ensemble_param_shardings`` lays it out (``serve_robust.ensemble_share``):
+its replicas (``data`` splits the ensemble where it divides,
+``sharding.replica_rows``), each cut to its ``model`` slices, with the
+few leaves a layer reads whole kept whole; their caches (whole along
+``model``, as the reference's ``cache_shardings``); the ``AggState`` of
+its vocabulary slice; and in speculative mode the draft replica's
+``model`` slices.  The steps run the tensor-parallel forward and gather
+and aggregate over the mesh (``repro_torch.dist.serve_robust``).
 """
 from __future__ import annotations
 
@@ -86,9 +90,12 @@ class ServingEngine:
         docstring), or ``None``; unused in plain mode, as in the
         reference.  Under a mesh ``params`` is the whole ensemble (a
         stacked tree or a list, on any device) and the engine keeps
-        copies of this rank's replicas and of the draft on the mesh's
-        device, so the caller may free the whole ensemble; a rank then
-        holds ``n / data`` full replicas (no tensor-parallel forward).
+        copies of this rank's share and of the draft's slices on the
+        mesh's device, so the caller may free the whole ensemble: a rank
+        then holds ``n / data`` replicas' ``model`` slices.  The whole
+        ensemble exists wherever the caller built it until then (a
+        rank that builds it on its card holds the whole and its share
+        at once while the engine copies).
     """
 
     def __init__(self, params, cfg: ModelConfig, n_slots: int = 4,
@@ -107,6 +114,7 @@ class ServingEngine:
         self.spec_k = 0
         self.accept_counts: List[np.ndarray] = []
         self.mesh = None
+        self.shard = None
         if ensemble is None:
             self.params = params
             self.device = tree_leaves(params)[0].device
@@ -131,14 +139,19 @@ class ServingEngine:
             self.params = params
             self.device = tree_leaves(params)[0].device
         else:
-            from repro_torch.dist.sharding import (local_replicas,
-                                                   replica_rows)
-            split = replica_rows(self.n_replicas, mesh)[1]
+            from repro_torch.dist.mesh import mesh_axis_sizes
+            from repro_torch.dist.serve import serve_shard
+            from repro_torch.dist.serve_robust import ensemble_share
+            from repro_torch.dist.sharding import replica_rows
+            sliced = (replica_rows(self.n_replicas, mesh)[1]
+                      or mesh_axis_sizes(mesh).get("model", 1) > 1)
             self.device = mesh.device
-            # copies when split, so the caller's whole ensemble can go
+            # copies when sliced, so the caller's whole ensemble can go
             self.params = tree_map(
-                lambda x: x.to(self.device, copy=split),
-                local_replicas(params, mesh))
+                lambda x: x.to(self.device, copy=sliced).contiguous(),
+                ensemble_share(params, cfg, mesh, self.n_replicas))
+            # the draft's shard: the replicas' inner layout, unstacked
+            self.shard = serve_shard(cfg, mesh)
         n_local = tree_leaves(self.params)[0].shape[0]
         kw = dict(mesh=mesh, n_replicas=self.n_replicas)
         self._decode = make_robust_serve_step(cfg, ensemble, **kw)
@@ -163,12 +176,17 @@ class ServingEngine:
             raise ValueError(
                 f"draft_replica {self.draft_replica} out of range for "
                 f"{self.n_replicas} replicas")
+        draft = tree_map(lambda x: x[self.draft_replica], whole)
+        if mesh is not None:
+            from repro_torch.dist.serve import serve_specs
+            from repro_torch.dist.sharding import shard_tree
+            draft = shard_tree(draft, serve_specs(cfg, mesh), mesh)
         self.draft_params = tree_map(
-            lambda x: x[self.draft_replica].to(
-                self.device, copy=mesh is not None), whole)
+            lambda x: x.to(self.device, copy=mesh is not None).contiguous(),
+            draft)
         self.draft_cache = init_cache(cfg, n_slots, cache_len,
                                       device=self.device)
-        self._propose = make_draft_propose(cfg, k)
+        self._propose = make_draft_propose(cfg, k, shard=self.shard)
         self._verify = make_robust_verify_step(cfg, ensemble, **kw)
         self._accept = accept_block
 

@@ -1,14 +1,15 @@
 """Robust speculative decoding: draft proposal and Byzantine-safe
 acceptance (counterpart of ``repro/serving/speculative.py``).
 
-The draft is one replica of the ensemble (``spec.draft_replica``)
-decoding ``k - 1`` tokens greedily; the ensemble then scores the whole
-block in one ``make_robust_verify_step`` call, aggregated per position
-through the registry.  The Byzantine contract lives in the acceptance
-rule (:func:`accept_block`): a draft token is emitted only if it
-survives the robustly aggregated distribution, never a single
-replica's, so a poisoned draft costs throughput (rejected blocks) but
-never changes the accepted stream.
+The draft is one replica of the ensemble (``spec.draft_replica``;
+under a mesh with a ``model`` axis, each rank's slices of it on the
+split forward) decoding ``k - 1`` tokens greedily; the ensemble then
+scores the whole block in one ``make_robust_verify_step`` call,
+aggregated per position through the registry.  The Byzantine contract
+lives in the acceptance rule (:func:`accept_block`): a draft token is
+emitted only if it survives the robustly aggregated distribution, never
+a single replica's, so a poisoned draft costs throughput (rejected
+blocks) but never changes the accepted stream.
 
 Block convention: a verify block of length ``k`` is ``[t0, d1, ...,
 d_{k-1}]``, the last emitted token and the draft's proposals.  Fed at
@@ -29,11 +30,12 @@ import torch
 from repro_torch.core.pytree import tree_map
 from repro_torch.models import decode_step
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.decode import logits_split
 
 __all__ = ["accept_block", "draft_cache_view", "make_draft_propose"]
 
 
-def make_draft_propose(cfg: ModelConfig, k: int) -> Callable:
+def make_draft_propose(cfg: ModelConfig, k: int, shard=None) -> Callable:
     """Build the greedy draft proposer for block length ``k``.
 
     Entries the draft writes for later-rejected proposals sit above the
@@ -44,6 +46,11 @@ def make_draft_propose(cfg: ModelConfig, k: int) -> Callable:
     Args:
       cfg: the draft's model configuration (the ensemble's).
       k: verify-block length (``>= 1``).
+      shard: ``None``, or the ``repro_torch.dist.tensor_parallel.Shard``
+        of the draft's parameters (a rank's ``model`` slices in the
+        serving layout): each draft token then takes the split forward,
+        its logits gathered over ``model`` before the argmax when they
+        are the rank's vocabulary columns.
 
     Returns:
       ``propose(draft_params, draft_cache, token, pos) -> (block,
@@ -61,13 +68,17 @@ def make_draft_propose(cfg: ModelConfig, k: int) -> Callable:
             return token[:, None], draft_cache
         return propose_identity
 
+    split = logits_split(cfg, shard)
+
     def propose(draft_params, draft_cache, token, pos):
         tok = token
         p = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
         block = [token]
         for _ in range(k - 1):
             logits, draft_cache = decode_step(draft_params, cfg, draft_cache,
-                                              tok[:, None], p)
+                                              tok[:, None], p, shard=shard)
+            if split:
+                logits = shard.gather(logits, -1)
             tok = torch.argmax(logits[:, 0, :], dim=-1).to(token.dtype)
             block.append(tok)
             p = p + 1

@@ -8,7 +8,11 @@ matrix runner and tables, and the ``meta`` readiness of the port.
   train step on a (2, 2) mesh (``bulyan-krum`` over ``fused``, ``krum``
   over ``xla`` with the attack's ``"top"`` coordinate, the asynchronous
   ``stale-bulyan-krum`` over ``pallas``) and the robust decode step on a
-  (2, 1) mesh, both worlds spawned once, side by side.
+  (2, 1) mesh and, on the rank's share with the split forward, on the
+  (2, 2) mesh, both worlds spawned once, side by side.
+* The plain ``decode_32k`` / ``prefill_32k`` cells trace each rank's
+  ``param_shardings`` slices: argument bytes are the split leaves' bytes
+  over ``model``, the others whole, plus the rank's inputs.
 * A step traced on ``meta`` against the same step on CPU tensors: the
   same ``FlopCounterMode`` total and the same kernel launches (on the
   CPU, the calls each wrapper makes to its plain version, which stand for
@@ -39,7 +43,7 @@ torch = pytest.importorskip("torch")
 from repro.launch import summarize as jsummarize  # noqa: E402
 from repro_torch.agg.specs import AggSpec  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_reduced  # noqa: E402
-from repro_torch.core.pytree import tree_map  # noqa: E402
+from repro_torch.core.pytree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.device import host_index, resolve_device  # noqa: E402
 from repro_torch.dist.mesh import run_on_mesh  # noqa: E402
 from repro_torch.dist.train import make_loss_fn, make_train_step  # noqa: E402
@@ -245,8 +249,8 @@ def test_skip_record():
 @pytest.fixture(scope="module")
 def worlds():
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        train = pool.submit(run_on_mesh, cases.train_comm, (2, 2),
-                            args=(list(cases.TRAIN),), device="cpu",
+        train = pool.submit(run_on_mesh, cases.train_and_serve_comm,
+                            (2, 2), args=(list(cases.TRAIN),), device="cpu",
                             num_threads=1, timeout=300)
         serve = pool.submit(run_on_mesh, cases.serve_comm, (2, 1),
                             device="cpu", num_threads=1, timeout=300)
@@ -281,6 +285,67 @@ def test_recording_mesh_equals_gloo_decode_step(worlds):
         assert got["decode"]["all_gather"]["calls"] == 1
         # model = 1: K5 on the gathered stack
         assert pred["launches"]["fused_aggregate"] == 3
+
+
+def test_recording_mesh_equals_gloo_tensor_parallel_decode_step(worlds):
+    """The (2, 2) world's decode step on each rank's share (its
+    replicas' model slices, the split forward): the trace of the same
+    rank records the same collectives per kind; it launches one K1 on
+    the rank's vocabulary slice (``fused`` is ``pallas`` under the model
+    axis) and gathers no parameter leaf."""
+    cfg = get_reduced(cases.ARCH)
+    for rank, got in enumerate(worlds[0]):
+        mesh = dryrun.RecordingMesh((2, 2), rank=rank)
+        assert mesh.coords == got["coords"]
+        pred = dryrun.trace_serve_step(
+            cfg, AggSpec(**cases.SERVE_SPEC), mesh, cases.SERVE_N,
+            cases.SERVE_SLOTS, cases.SERVE_CACHE,
+            pos=np.zeros((cases.SERVE_SLOTS,), np.int32))
+        assert pred["by_kind"] == got["decode"], rank
+        assert got["decode"]["all_reduce"]["calls"] > 1
+        assert pred["launches"]["pairwise_gram_partial"] == 1
+        assert sum(pred["launches"].values()) == 1
+        assert not any(g["leaf"] for g in pred["gathers"])
+
+
+@pytest.mark.parametrize("shape_name", ["decode_32k", "prefill_32k"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "mixtral-8x22b",
+                                  "whisper-medium"])
+def test_plain_serving_cells_trace_param_shardings_slices(arch, shape_name):
+    """The plain decode / prefill cells trace each rank's
+    ``param_shardings`` slices with ``shard=``: the rank's argument bytes
+    are the whole parameters' bytes over ``model`` for the leaves the
+    serving layout splits, the other leaves whole, plus its slice of the
+    inputs (and caches); only the few leaves a layer reads whole stay
+    whole, and no parameter leaf is gathered."""
+    from repro_torch.dist.serve import serve_specs
+    from repro_torch.dist.sharding import _spec_leaves, model_dim
+    from repro_torch.launch import specs as S
+    rec = dryrun.run_one(arch, shape_name, reduced=True)
+    cfg = get_reduced(arch)
+    mesh = dryrun.RecordingMesh((16, 16))
+    params, _ = S.param_specs(cfg, mesh)
+    split = whole = 0
+    for x, s in zip(tree_leaves(params), _spec_leaves(serve_specs(cfg,
+                                                                  mesh))):
+        nbytes = x.numel() * x.element_size()
+        if model_dim(s) is not None:
+            split += nbytes // 16
+        else:
+            whole += nbytes
+    inputs, in_sh = S.input_specs(cfg, shape_name, mesh)
+    local = {k: S.local_tree(v, in_sh[k], mesh) for k, v in inputs.items()}
+    extra = sum(x.numel() * x.element_size() for x in tree_leaves(local))
+    if shape_name == "decode_32k":
+        cache, cache_sh = S.cache_specs(cfg, 128, 32768, mesh)
+        extra += sum(x.numel() * x.element_size() for x in tree_leaves(
+            S.local_tree(cache, cache_sh, mesh)))
+    assert rec["serve_layout"]["share"] == split + whole
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == (
+        split + whole + extra)
+    assert split > 10 * whole
+    assert rec["param_gathers"] == {}
+    assert rec["collectives"]["all-reduce"]["count"] > 0
 
 
 def test_recording_mesh_counts_like_a_mesh():

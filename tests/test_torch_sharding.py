@@ -150,6 +150,50 @@ def test_ensemble_and_cache_rules_match(arch, shape):
         _ref_specs(jsh.cache_shardings(cache, jm)))
 
 
+class _At(_StandIn):
+    """A stand-in mesh seen from one rank (``index`` too)."""
+
+    def __init__(self, shape, rank):
+        super().__init__(shape)
+        self.coords = dict(zip(self.axis_names,
+                               np.unravel_index(rank, shape)))
+
+    def index(self, axis):
+        return int(self.coords.get(axis, 0))
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 2), (16, 16)], ids=str)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_local_ensemble_cuts_the_reference_layout(arch, shape):
+    """A rank's share of a replica-stacked ensemble
+    (``local_ensemble``), at the mesh's first and last positions: each
+    leaf cut to the local shape of the reference's
+    ``ensemble_param_shardings`` spec (its replicas over ``data``, the
+    inner dims over ``model``), the rows those of ``replica_rows``."""
+    jm = _jax_mesh(shape)
+    sizes = dict(zip(_names(shape), shape))
+    for replicas in (7, 32):
+        stacked = _stack(_abstract(arch), replicas)
+        want = _ref_specs(jsh.ensemble_param_shardings(stacked, jm))
+        tree = _meta(stacked)
+        for rank in (0, math.prod(shape) - 1):
+            mesh = _At(shape, rank)
+            rows, _ = tsh.replica_rows(replicas, mesh)
+            got = tree_leaves(tsh.local_ensemble(tree, mesh))
+            for x, whole, spec in zip(got, tree_leaves(tree), want):
+                local = [n // math.prod(sizes[a] for a in (
+                    () if e is None else (e,) if isinstance(e, str) else e))
+                    for n, e in zip(whole.shape, tuple(spec) + (None,) * (
+                        whole.dim() - len(spec)))]
+                assert tuple(x.shape) == tuple(local), (arch, spec)
+                assert x.shape[0] == len(range(replicas)[rows])
+    # the values: rank (1, 1) of a (2, 2) mesh on a concrete leaf
+    x = torch.arange(4 * 6 * 8.0).reshape(4, 6, 8)
+    got = tsh.local_ensemble({"w": x}, _At((2, 2), 3),
+                             {"w": tsh.P("data", None, "model")})["w"]
+    assert torch.equal(got, x[2:4, :, 4:8])
+
+
 @pytest.mark.parametrize("shape", SIZES, ids=str)
 def test_batch_pspec_matches(shape):
     mesh = _StandIn(shape)

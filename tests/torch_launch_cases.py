@@ -19,8 +19,7 @@ from repro_torch.dist import serve_robust as sr
 from repro_torch.dist.async_train import (init_async_state,
                                           make_async_train_step)
 from repro_torch.dist.mesh import comm_snapshot
-from repro_torch.dist.sharding import (local_replicas, param_shardings,
-                                       shard_tree)
+from repro_torch.dist.sharding import param_shardings, shard_tree
 from repro_torch.dist.train import make_train_step
 from repro_torch.models import init_cache, init_model
 from repro_torch.optim import get_optimizer
@@ -92,8 +91,8 @@ def train_comm(mesh, names) -> dict:
 def serve_comm(mesh) -> dict:
     """One robust decode step of a reduced llama3.2-3b ensemble of
     :data:`SERVE_N` replicas on this rank, as ``ServingEngine(mesh=)``
-    calls it (the rank's replicas, per-slot numpy positions):
-    ``by_kind`` of the step call's collectives."""
+    calls it (the rank's share of the ensemble, per-slot numpy
+    positions): ``by_kind`` of the step call's collectives."""
     torch.set_num_threads(1)
     cfg = get_reduced(ARCH)
     params = init_model(0, cfg, device="cpu")
@@ -103,7 +102,7 @@ def serve_comm(mesh) -> dict:
     spec = AggSpec(**SERVE_SPEC)
     step = sr.make_robust_serve_step(cfg, spec, mesh=mesh,
                                      n_replicas=SERVE_N)
-    mine = local_replicas(stacked, mesh)
+    mine = sr.ensemble_share(stacked, cfg, mesh, SERVE_N)
     n_local = tree_leaves(mine)[0].shape[0]
     cache = sr.replicate_cache(init_cache(cfg, SERVE_SLOTS, SERVE_CACHE,
                                           device="cpu"), n_local)
@@ -112,6 +111,15 @@ def serve_comm(mesh) -> dict:
     mesh.reset_comm()
     step(mine, cache, token, pos, None)
     return {"coords": dict(mesh.coords), "decode": _by_kind(mesh)}
+
+
+def train_and_serve_comm(mesh, names) -> dict:
+    """:func:`train_comm` of the named settings and :func:`serve_comm`'s
+    decode step, in one world."""
+    out = train_comm(mesh, names)
+    out.update({k: v for k, v in serve_comm(mesh).items()
+                if k != "coords"})
+    return out
 
 
 

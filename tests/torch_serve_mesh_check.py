@@ -7,7 +7,8 @@ function it runs: the caller puts this directory on ``sys.path``, which
 the ranks inherit.  Each rank builds the poisoned ensemble from a seed
 (one rank at a time, so the card holds one whole ensemble at most while
 they build), hands it to ``ServingEngine(mesh=)``, which keeps the
-rank's replicas, and serves the requests.  Around every robust step the
+rank's share (its replicas' ``model`` slices), frees the whole, and
+serves the requests.  Around every robust step the
 rank reads the kernels' launch counters (per process), the host clock,
 its collectives (``Mesh.comm``) and the poisoned replica's selection
 weight; it records the top-2 gap of every emitted token's aggregated
@@ -29,17 +30,19 @@ import torch.distributed as dist
 
 from repro_torch.agg.specs import AggSpec
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.core.pytree import tree_leaves
+from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.dist import serve_robust as sr
 from repro_torch.dist.mesh import comm_since, comm_snapshot, make_host_mesh
 from repro_torch.dist.robust import resolve_distance_backend
-from repro_torch.dist.sharding import gather_replicas, replica_rows
+from repro_torch.dist.mesh import mesh_axis_sizes
+from repro_torch.dist.sharding import replica_rows
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_agg import (fused_aggregate,
                                            fused_aggregate_plain)
 from repro_torch.kernels.pairwise_gram import (pairwise_gram_partial,
                                                pairwise_gram_partial_plain)
 from repro_torch.models import decode_step, init_model
+from repro_torch.models.decode import logits_split
 from repro_torch.obs.buffer import AggDiagnostics
 from repro_torch.obs.forensics import sketch_spans, tree_diagnostics
 from repro_torch.serving import Request, ServingEngine
@@ -94,7 +97,11 @@ class _Probe:
     the emitted tokens' top-2 gaps.  ``capture`` keeps the first decode
     step's gathered stack (computed before the call, from the same
     replicas, outside its window) and the aggregate, selection and
-    scores the step returned; ``record`` keeps every decode step's
+    scores the step returned, and on one device ``spread``, how far the
+    poisoned replicas' rows of that stack move when each replica runs
+    alone (:meth:`_spread`), and ``witness``, how far they lie from the
+    same replica's step in float64 on the same cache (:meth:`_witness`);
+    ``record`` keeps every decode step's
     stack, aggregate and the telemetry row it pushed.  ``extra_s`` is
     the host time the probe spent outside the steps' windows, which a
     run's wall time leaves out."""
@@ -107,6 +114,7 @@ class _Probe:
         self.capture, self.record = capture, record
         self.records: List = []
         self.stack = self.first = None
+        self.spread, self.witness = [], []
         self.pending = None
         self.extra_s = 0.0
         for kind, attr in (("admit", "_ens_prefill"), ("decode", "_decode"),
@@ -124,13 +132,58 @@ class _Probe:
         eng.admit = recorded_admit
 
     def _stack_of(self, args):
-        """The decode step's gathered ``(n, B, V)`` logits."""
+        """The decode step's gathered ``(n, B, V)`` logits (the rank's
+        share through the split forward under a ``model`` axis, gathered
+        over ``data`` and, where they are vocabulary columns, over
+        ``model``)."""
         eng, cfg = self.eng, self.eng.cfg
         p, c, tok, pos = args[:4]
         logits = torch.func.vmap(lambda pp, cc: decode_step(
-            pp, cfg, cc, tok, pos)[0])(p, c)[:, :, 0].to(torch.float32)
+            pp, cfg, cc, tok, pos, shard=eng.shard)[0])(p, c)[:, :, 0].to(
+                torch.float32)
         return (logits if eng.mesh is None
-                else gather_replicas(logits, self.n, eng.mesh))
+                else sr.gathered_logits(logits, self.n, eng.mesh,
+                                        logits_split(cfg, eng.shard)))
+
+    def _spread(self, args, stack):
+        """``[(row, max |difference|)]`` for the poisoned replicas' rows of
+        a one-device decode step: each replica alone against the
+        ensemble's ``vmap``, the same function in another summation
+        order (how far rounding alone moves the row)."""
+        cfg = self.eng.cfg
+        p, c, tok, pos = args[:4]
+        out = []
+        for i in range(self.n - self.f, self.n):
+            alone = decode_step(tree_map(lambda x: x[i], p), cfg,
+                                tree_map(lambda x: x[i], c), tok, pos)[0]
+            out.append((i, float((alone[:, 0].to(torch.float32)
+                                  - stack[i]).abs().max())))
+        return out
+
+    def _witness(self, args, stack):
+        """``[(row, max |difference|)]`` for the poisoned replicas' rows of
+        the stack that this rank holds: each against the same replica's
+        decode step in float64 on the same cache, through the same path
+        (the split forward under a ``model`` axis, whose ranks hold the
+        same replicas), i.e. how far the row lies from the exact one."""
+        eng, cfg = self.eng, self.eng.cfg
+        p, c, tok, pos = args[:4]
+        lo = 0 if eng.mesh is None else replica_rows(self.n, eng.mesh)[
+            0].start
+        held = tree_leaves(p)[0].shape[0]
+        out = []
+        for i in range(self.n - self.f, self.n):
+            if not 0 <= i - lo < held:
+                continue
+            p64, c64 = (tree_map(lambda x: x[i - lo].double(), t)
+                        for t in (p, c))
+            e = decode_step(p64, cfg, c64, tok, pos, shard=eng.shard)[0][
+                :, 0]
+            if eng.mesh is not None and logits_split(cfg, eng.shard):
+                e = eng.mesh.all_gather(e, "model", e.dim() - 1)
+            out.append((i, float((stack[i].double() - e).abs().max())))
+            del p64, c64, e
+        return out
 
     def _wrap(self, fn, kind):
         dev = self.eng.device
@@ -143,6 +196,9 @@ class _Probe:
                 stack = self._stack_of(args)
                 if self.capture and self.stack is None:
                     self.stack = stack
+                    self.witness = self._witness(args, stack)
+                    if self.eng.mesh is None:
+                        self.spread = self._spread(args, stack)
             _sync(dev)
             self.extra_s += time.perf_counter() - t_probe
             before = dict(_build.LAUNCHES)
@@ -325,10 +381,17 @@ def serve_rank(mesh, setting: Dict[str, Any]) -> Dict[str, Any]:
       ``aggregate_logits`` on one device on that stack, under the backend
       the engine's mesh resolves, gives the step's selection and its
       aggregate bit for bit, and ``"on_stack_scores"``: its scores'
-      largest difference over their largest |entry|; the ``telemetry``
+      largest difference over their largest |entry|, ``"witness"`` (the
+      probe's: the poisoned rows this rank holds against float64), and
+      on one device ``"spread"`` (the probe's); the ``telemetry``
       run also ``"sketch"``, :func:`_sketch_check` of its rows.  Besides:
-      ``"n_local"``, ``"resident_gib"`` (allocated after the build),
-      ``"peak_gib"``, ``"build_s"``, ``"k5"`` / ``"k1"`` and
+      ``"n_local"``, ``"share_bytes"`` (the first engine's parameters),
+      ``"whole_bytes"`` (the whole ensemble the rank built first),
+      ``"layout"`` (under a mesh, ``launch.dryrun.serve_layout_bytes``:
+      what the rank's share should take), ``"resident_gib"``
+      (allocated after the build), ``"build_peak_gib"`` (the peak while
+      the ranks built in turn, the whole ensemble and the share at
+      once), ``"peak_gib"``, ``"build_s"``, ``"k5"`` / ``"k1"`` and
       ``"coords"``.
     """
     dev = mesh.device
@@ -346,23 +409,37 @@ def serve_rank(mesh, setting: Dict[str, Any]) -> Dict[str, Any]:
 
     def build():
         params = ensemble(cfg, n, f, setting["seed"], dev)
+        out["whole_bytes"] = sum(x.numel() * x.element_size()
+                                 for x in tree_leaves(params))
         for name in setting["runs"]:
             engines[name] = ServingEngine(
                 params, cfg, n_slots=setting["slots"],
                 cache_len=setting["cache_len"],
                 ensemble=dataclasses.replace(base, **RUNS[name]),
                 mesh=engine_mesh)
-        if engine_mesh is not None and replica_rows(n, mesh)[1]:
+        # the engines keep copies of the rank's share when it is a slice
+        if engine_mesh is not None and (
+                replica_rows(n, mesh)[1]
+                or mesh_axis_sizes(mesh).get("model", 1) > 1):
             del params
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
 
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     _world_in_turn(build)
     out["build_s"] = time.perf_counter() - t0
+    out["build_peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                             if dev.type == "cuda" else math.nan)
     out["resident_gib"] = (torch.cuda.memory_allocated(dev) / 2 ** 30
                            if dev.type == "cuda" else math.nan)
-    out["n_local"] = tree_leaves(engines[setting["runs"][0]].params)[0] \
-        .shape[0]
+    share = engines[setting["runs"][0]].params
+    out["n_local"] = tree_leaves(share)[0].shape[0]
+    out["share_bytes"] = sum(x.numel() * x.element_size()
+                             for x in tree_leaves(share))
+    if engine_mesh is not None:
+        from repro_torch.launch.dryrun import serve_layout_bytes
+        out["layout"] = serve_layout_bytes(cfg, mesh, n)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     first = setting["runs"][0]
@@ -396,6 +473,7 @@ def serve_rank(mesh, setting: Dict[str, Any]) -> Dict[str, Any]:
             on_stack, res = sr.aggregate_logits(stack, f, base.gar,
                                                 distance_backend=backend)[:2]
             run.update(stack=stack.cpu(), agg=agg.cpu(),
+                       spread=probe.spread, witness=probe.witness,
                        on_stack=bool(torch.equal(on_stack, agg)
                                      and torch.equal(res.selected, sel)),
                        on_stack_scores=float(

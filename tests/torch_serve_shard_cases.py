@@ -18,15 +18,15 @@ from repro_torch.configs import get_reduced
 from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.dist import robust
 from repro_torch.dist import serve_robust as sr
-from repro_torch.dist.sharding import (P, gather_replicas, gather_shard,
-                                       gather_tree, gram_pspec,
-                                       gram_shardings,
-                                       local_replicas, logits_pspec,
-                                       per_worker_specs, replica_rows,
-                                       shard_tree)
+from repro_torch.dist.serve import serve_shard
+from repro_torch.dist.sharding import (P, gather_shard, gather_tree,
+                                       gram_pspec, gram_shardings,
+                                       logits_pspec, per_worker_specs,
+                                       replica_rows, shard_tree)
 from repro_torch.dist.train import init_agg_state, make_train_step
 from repro_torch.interop import params_from_jax
 from repro_torch.models import decode_step, prefill, verify_step
+from repro_torch.models.decode import logits_split
 from repro_torch.optim import get_optimizer
 from repro_torch.serving import Request, ServingEngine
 
@@ -122,56 +122,102 @@ def _aggregates(mesh, stacks, rules=AGG_RULES, backends=BACKENDS) -> dict:
     return out
 
 
-def _local_stack(fn, local, mesh) -> torch.Tensor:
+def _local_stack(fn, local, mesh, shard=None) -> torch.Tensor:
     """A step's gathered ``(n, ...)`` logits, outside the step: the
-    forward ``fn`` under ``vmap`` over this rank's replicas, gathered
-    over ``data``."""
-    stack = torch.func.vmap(fn)(*local).to(torch.float32)
-    return stack if mesh is None else gather_replicas(stack, N, mesh)
+    forward ``fn(..., shard)`` under ``vmap`` over this rank's share,
+    gathered over ``data`` (and over ``model`` where the logits are the
+    rank's vocabulary columns)."""
+    stack = torch.func.vmap(lambda *a: fn(*a, shard))(*local).to(
+        torch.float32)
+    if mesh is None:
+        return stack
+    return sr.gathered_logits(stack, N, mesh,
+                              logits_split(get_reduced(ARCH), shard))
 
 
 def steps_case(params, prompt, block, mesh=None) -> dict:
     """The prefill, one decode and one verify step (under ``mesh``, or on
     one device), each with the stack it aggregated (recomputed from the
-    rank's replicas) and the caches of the rank's replicas."""
+    rank's share) and the caches of the rank's replicas."""
     cfg = get_reduced(ARCH)
     spec = serve_spec()
     if mesh is None:
-        rows, local = slice(0, N), params
+        rows, local, shard = slice(0, N), params, None
     else:
         rows, _ = replica_rows(N, mesh)
-        local = local_replicas(params, mesh, N)
+        local = sr.ensemble_share(params, cfg, mesh, N)
+        shard = serve_shard(cfg, mesh)
     kw = dict(mesh=mesh, n_replicas=N)
     tokens = torch.as_tensor(prompt[None])
     agg_p, cache, diag_p = sr.make_robust_prefill_step(
         cfg, spec, cache_len=CACHE, **kw)(local, tokens)
-    stack_p = _local_stack(lambda p: prefill(p, cfg, tokens,
-                                             cache_len=CACHE)[0][:, -1],
-                           (local,), mesh)
+    stack_p = _local_stack(lambda p, s: prefill(p, cfg, tokens,
+                                                cache_len=CACHE,
+                                                shard=s)[0][:, -1],
+                           (local,), mesh, shard)
     token = torch.argmax(agg_p, dim=-1).to(torch.int32)[:, None]
     pos = np.full((1,), len(prompt), np.int32)
     agg_d, cache_d, diag_d, _ = sr.make_robust_serve_step(
         cfg, spec, **kw)(local, cache, token, pos)
-    stack_d = _local_stack(lambda p, c: decode_step(p, cfg, c, token,
-                                                    pos)[0][:, 0],
-                           (local, cache), mesh)
+    stack_d = _local_stack(lambda p, c, s: decode_step(
+        p, cfg, c, token, pos, shard=s)[0][:, 0], (local, cache), mesh,
+        shard)
     blk = torch.as_tensor(block[None])
     pos_v = pos + 1
     agg_v, cache_v, diag_v, _ = sr.make_robust_verify_step(
         cfg, spec, **kw)(local, cache_d, blk, pos_v)
-    stack_v = _local_stack(lambda p, c: verify_step(p, cfg, c, blk,
-                                                    pos_v)[0],
-                           (local, cache_d), mesh)
+    stack_v = _local_stack(lambda p, c, s: verify_step(
+        p, cfg, c, blk, pos_v, shard=s)[0], (local, cache_d), mesh, shard)
     return {"rows": (rows.start, rows.stop),
             "prefill": (agg_p, _cpu(cache), diag_p.selected, stack_p),
             "decode": (agg_d, _cpu(cache_d), diag_d.selected, stack_d),
             "verify": (agg_v, _cpu(cache_v), diag_v.selected, stack_v)}
 
 
+class _Replay:
+    """While active, every ``serve_robust.aggregate_logits`` call that
+    carries a state (the engine's decode steps) is replayed on one
+    device: ``aggregate_logits`` without a mesh, under the backend the
+    mesh resolves, on the whole stack the call aggregated (its
+    vocabulary slice gathered over ``model``) and the whole state it
+    took.  ``pairs`` keeps each call's new telemetry ring and the
+    replay's, on the CPU."""
+
+    def __init__(self, mesh):
+        self.mesh, self.pairs = mesh, []
+        self.orig = sr.aggregate_logits
+
+    def __enter__(self):
+        sr.aggregate_logits = self._call
+        return self
+
+    def __exit__(self, *exc):
+        sr.aggregate_logits = self.orig
+
+    def _call(self, logits, f, gar, *, mesh=None, state=None,
+              vocab_slice=False, **kw):
+        out = self.orig(logits, f, gar, mesh=mesh, state=state,
+                        vocab_slice=vocab_slice, **kw)
+        if state is None:
+            return out
+        whole = (self.mesh.all_gather(logits, "model", logits.dim() - 1)
+                 if vocab_slice else logits)
+        kw["distance_backend"] = robust.resolve_distance_backend(
+            kw["distance_backend"], self.mesh)
+        one = self.orig(whole.cpu(), f, gar, state=whole_state(
+            state, logits_pspec(tuple(whole.shape), self.mesh), self.mesh),
+            **kw)
+        self.pairs.append((_cpu(out[2].obs), one[2].obs))
+        return out
+
+
 def engine_runs(params, prompts, mesh=None) -> dict:
     """The engine per token, with ``speculative_k = 4`` (draft replica 0)
     and per token with ``telemetry=True``: streams, the telemetry
-    drain and the accepted counts."""
+    drain and the accepted counts, the replicas the engine keeps and
+    each of its parameter leaves' and its draft's element counts; under
+    a mesh the telemetry run also ``"replay"``, :class:`_Replay`'s
+    pairs of rings."""
     cfg = get_reduced(ARCH)
     out = {}
     for name, spec in (
@@ -180,11 +226,21 @@ def engine_runs(params, prompts, mesh=None) -> dict:
             ("telemetry", serve_spec(telemetry=True))):
         eng = ServingEngine(params, cfg, n_slots=SLOTS, cache_len=CACHE,
                             ensemble=spec, mesh=mesh)
-        streams = eng.run([Request(rid, np.asarray(p, np.int32), NEW)
-                           for rid, p in enumerate(prompts)], max_steps=40)
+        replay = _Replay(mesh)
+        reqs = [Request(rid, np.asarray(p, np.int32), NEW)
+                for rid, p in enumerate(prompts)]
+        if mesh is not None and spec.telemetry:
+            with replay:
+                streams = eng.run(reqs, max_steps=40)
+        else:
+            streams = eng.run(reqs, max_steps=40)
         rep = eng.telemetry()
         out[name] = {"streams": streams, "telemetry": rep,
-                     "n_local": tree_leaves(eng.params)[0].shape[0]}
+                     "replay": replay.pairs,
+                     "n_local": tree_leaves(eng.params)[0].shape[0],
+                     "numels": [x.numel() for x in tree_leaves(eng.params)],
+                     "draft_numels": [x.numel() for x in tree_leaves(
+                         getattr(eng, "draft_params", {}))]}
     return out
 
 
