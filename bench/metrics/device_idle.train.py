@@ -1,0 +1,9 @@
+"""Share of the traced training steps in which no device operation ran
+(the union of kernel, copy and set intervals)."""
+
+
+def read(m):
+    tr = m.get("trace")
+    if tr is None or "untraced_step_s" not in m or not m.get("traced_s"):
+        return None
+    return 100.0 * (1.0 - tr.busy_s / m["traced_s"])
