@@ -1129,7 +1129,11 @@ PORT_KERNELS = ("gram_kernel", "select_kernel", "combine_single_kernel",
 #: the port's profiler spans (``repro_torch.obs.trace.named_span``): the
 #: profiler lists each with the device time of the kernels under it, so
 #: they are not kernels of their own
-SPANS = ("agg/coordinate", "agg/gram", "agg/select", "kernel/fused")
+SPANS = ("agg/coordinate", "agg/gram", "agg/select", "kernel/fused",
+         "model/cache", "serve/admit", "serve/aggregate", "serve/decode",
+         "serve/prefill", "serve/sample", "serve/splice", "serve/step",
+         "train/aggregate", "train/attack", "train/grad", "train/opt",
+         "train/step")
 
 
 def profile_steps(torch, trainer, batcher, start: int, steps: int) -> dict:

@@ -517,14 +517,16 @@ def make_robust_prefill_step(cfg: ModelConfig, spec: AggSpec,
         logits, caches = reps.forward(
             lambda p, s: prefill(p, cfg, tokens, extra, cache_len=cache_len,
                                  impl=impl, shard=s), stacked_params)
-        stack, sliced = reps.stack(logits[:, :, -1, :].to(torch.float32))
-        out = aggregate_logits(
-            stack, spec.f_declared, spec.effective_gar,
-            agg_dtype=spec.agg_dtype,
-            distance_backend=spec.distance_backend, mesh=mesh,
-            history_window=spec.history_window,
-            rep_lr=spec.rep_lr, rep_decay=spec.rep_decay,
-            vocab_slice=sliced)
+        with named_span("serve/aggregate"):
+            stack, sliced = reps.stack(
+                logits[:, :, -1, :].to(torch.float32))
+            out = aggregate_logits(
+                stack, spec.f_declared, spec.effective_gar,
+                agg_dtype=spec.agg_dtype,
+                distance_backend=spec.distance_backend, mesh=mesh,
+                history_window=spec.history_window,
+                rep_lr=spec.rep_lr, rep_decay=spec.rep_decay,
+                vocab_slice=sliced)
         return out[0], caches, out[1]
 
     return prefill_step
@@ -565,11 +567,12 @@ def make_robust_serve_step(cfg: ModelConfig, spec: AggSpec, mesh=None,
         logits, new_cache = reps.forward(
             lambda p, c, s: decode_step(p, cfg, c, token, pos, shard=s),
             stacked_params, stacked_cache)
-        stack, sliced = reps.stack(logits[:, :, 0, :].to(torch.float32),
-                                   attack=True)
-        stack = _maybe_attack_logits(stack, spec, pos)
-        agg, diag, new_state = _aggregate(spec, stack, agg_state, stateful,
-                                          mesh, sliced)
+        with named_span("serve/aggregate"):
+            stack, sliced = reps.stack(
+                logits[:, :, 0, :].to(torch.float32), attack=True)
+            stack = _maybe_attack_logits(stack, spec, pos)
+            agg, diag, new_state = _aggregate(spec, stack, agg_state,
+                                              stateful, mesh, sliced)
         return agg, new_cache, diag, (new_state if stateful else None)
 
     return serve_step
@@ -618,17 +621,17 @@ def make_robust_verify_step(cfg: ModelConfig, spec: AggSpec, mesh=None,
         logits, new_cache = reps.forward(
             lambda p, c, s: verify_step(p, cfg, c, tokens, pos, shard=s),
             stacked_params, stacked_cache)
-        stack, sliced = reps.stack(logits.to(torch.float32),
-                                   attack=True)     # (n, B, k, V)
-        stack = _maybe_attack_logits(stack, spec, pos)
-        aggs, diags = [], []
-        for j in range(stack.shape[2]):             # stream order
-            with named_span("serve/verify"):
+        with named_span("serve/aggregate"):
+            stack, sliced = reps.stack(logits.to(torch.float32),
+                                       attack=True)     # (n, B, k, V)
+            stack = _maybe_attack_logits(stack, spec, pos)
+            aggs, diags = [], []
+            for j in range(stack.shape[2]):             # stream order
                 agg, diag, agg_state = _aggregate(spec, stack[:, :, j],
                                                   agg_state, stateful, mesh,
                                                   sliced)
-            aggs.append(agg)
-            diags.append(diag)
+                aggs.append(agg)
+                diags.append(diag)
         diag = DistAggResult(*(torch.stack(fs) for fs in zip(*diags)))
         return (torch.stack(aggs, dim=1), new_cache, diag,
                 agg_state if stateful else None)

@@ -78,6 +78,7 @@ from repro_torch.dist.tensor_parallel import model_shard, vocab_parallel_nll
 from repro_torch.models import forward
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.schema import core_metrics, global_norm, selection_weight
+from repro_torch.obs.trace import named_span
 from repro_torch.optim import Optimizer
 
 __all__ = ["DistByzantineSpec", "byzantine_grads", "init_agg_state",
@@ -362,11 +363,13 @@ def _submissions(loss_fn: Callable, spec: AggSpec, params, batch: dict,
     dev = (tree_leaves(params)[0].device if layout is None
            else layout.mesh.device)
     args = _batch_tensors(batch, dev)
-    if layout is None:
-        losses, grads = _per_worker(loss_fn, params, args, worker_chunk)
-    else:
-        losses, grads = layout.submissions(loss_fn, params, args,
-                                           worker_chunk)
+    with named_span("train/grad"):
+        if layout is None:
+            losses, grads = _per_worker(loss_fn, params, args,
+                                        worker_chunk)
+        else:
+            losses, grads = layout.submissions(loss_fn, params, args,
+                                               worker_chunk)
     if spec.attack != "none" and spec.f > 0:
         akw = dict(spec.attack_kwargs)
         akw.setdefault("gar_name", spec.gar)
@@ -374,10 +377,11 @@ def _submissions(loss_fn: Callable, spec: AggSpec, params, batch: dict,
             akw.setdefault("prev", prev)
         if layout is not None:
             akw.update(mesh=layout.mesh, specs=layout.gram_specs)
-        gen = (_attack_generator(spec.seed, gen_step, dev)
-               if spec.attack in _RANDOM_ATTACKS else None)
-        grads = inject_byzantine(grads, spec.f, spec.attack, gen,
-                                 step=attack_step, **akw)
+        with named_span("train/attack"):
+            gen = (_attack_generator(spec.seed, gen_step, dev)
+                   if spec.attack in _RANDOM_ATTACKS else None)
+            grads = inject_byzantine(grads, spec.f, spec.attack, gen,
+                                     step=attack_step, **akw)
     return losses, grads
 
 
@@ -473,29 +477,36 @@ def make_train_step(cfg: ModelConfig, spec: DistByzantineSpec,
 
     def run_step(params, opt_state, batch, agg_state):
         n = batch["tokens"].shape[0]
+        with named_span("train/step", workers=int(n)):
+            return _run_step(params, opt_state, batch, agg_state, n)
+
+    def _run_step(params, opt_state, batch, agg_state, n):
         spec.validate(n, distributed=True)
         n_h = n - spec.f
         t = opt_state["step"]
         losses, grads = _submissions(loss_fn, spec, params, batch, t, t,
                                      worker_chunk, layout)
-        out = distributed_aggregate(
-            grads, spec.f_declared, spec.effective_gar,
-            agg_dtype=spec.agg_dtype,
-            distance_backend=spec.distance_backend, mesh=mesh,
-            state=agg_state, history_window=spec.history_window,
-            rep_lr=spec.rep_lr, rep_decay=spec.rep_decay,
-            specs=None if layout is None else layout.gram_specs)
-        agg, res = out[0], out[1]
+        with named_span("train/aggregate"):
+            out = distributed_aggregate(
+                grads, spec.f_declared, spec.effective_gar,
+                agg_dtype=spec.agg_dtype,
+                distance_backend=spec.distance_backend, mesh=mesh,
+                state=agg_state, history_window=spec.history_window,
+                rep_lr=spec.rep_lr, rep_decay=spec.rep_decay,
+                specs=None if layout is None else layout.gram_specs)
+            agg, res = out[0], out[1]
+            new_agg_state = out[2] if stateful else None
+            step_scale = None
+            if reputed:
+                new_agg_state, agg, step_scale = _reputation_tail(
+                    spec, loss_fn, params, grads, agg, res, agg_state,
+                    new_agg_state, layout)
         if observe is not None:
             observe(grads, res)
-        new_agg_state = out[2] if stateful else None
-        step_scale = None
-        if reputed:
-            new_agg_state, agg, step_scale = _reputation_tail(
-                spec, loss_fn, params, grads, agg, res, agg_state,
-                new_agg_state, layout)
-        return _finish(optimizer, params, opt_state, agg, grads, losses,
-                       res, n_h, step_scale, layout) + (new_agg_state,)
+        with named_span("train/opt"):
+            return _finish(optimizer, params, opt_state, agg, grads,
+                           losses, res, n_h, step_scale, layout) + (
+                               new_agg_state,)
 
     if stateful:
         return run_step

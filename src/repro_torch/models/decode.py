@@ -45,6 +45,7 @@ from repro_torch.models.transformer import (_apply_layer, _entry, _head,
                                             _out_proj, _proj, _projections,
                                             _run_encoder, _stack_len,
                                             _stacked, _sub, logits_split)
+from repro_torch.obs.trace import named_span
 
 __all__ = ["decode_step", "init_cache", "logits_split", "prefill",
            "slot_cache_len", "verify_step", "verify_supported"]
@@ -131,9 +132,10 @@ def _write(cache: torch.Tensor, idx: torch.Tensor,
            new: torch.Tensor) -> torch.Tensor:
     """``cache`` with ``new[b, j]`` written at position ``idx[b, j]`` of
     sequence ``b``: an out-of-place ``index_put`` (``.at[].set``)."""
-    b = cache.shape[0]
-    bidx = torch.arange(b, device=cache.device)[:, None].expand_as(idx)
-    return cache.index_put((bidx, idx.long()), new.to(cache.dtype))
+    with named_span("model/cache"):
+        b = cache.shape[0]
+        bidx = torch.arange(b, device=cache.device)[:, None].expand_as(idx)
+        return cache.index_put((bidx, idx.long()), new.to(cache.dtype))
 
 
 def _norm(p, key, x, shard) -> torch.Tensor:
@@ -196,7 +198,8 @@ def _run_layers(params, cfg: ModelConfig, cache: dict, x: torch.Tensor,
                                         period_c[f"s{j}"], x, slot,
                                         _sub(period_s, f"s{j}"))
         period_caches.append(newc)
-    new_periods = tree_map(lambda *xs: torch.stack(xs), *period_caches)
+    with named_span("model/cache"):
+        new_periods = tree_map(lambda *xs: torch.stack(xs), *period_caches)
     new_tail = {}
     for t in range(cfg.n_tail):
         slot = cfg.slot(cfg.n_periods * cfg.period + t)

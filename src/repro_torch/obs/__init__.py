@@ -8,9 +8,12 @@
   aggregation call with the base rule's data path untouched;
 * ``repro_torch.obs.detect`` — host-side attack detectors
   (selection-entropy collapse, suspicion ranking, ε-margin trajectory);
-* ``repro_torch.obs.schema`` / ``trace`` / ``export`` — the shared
-  train-metrics schema, profiler phase names and the span timer, and
-  the JSONL / CSV writers.
+* ``repro_torch.obs.schema`` / ``export`` — the shared train-metrics
+  schema and the JSONL / CSV writers;
+* ``repro_torch.obs.trace`` — :func:`named_span`, the program's phase
+  spans, and ``SpanRecorder``, which keeps each span's host interval on
+  the profiler trace's clock while it records (the port's own: the
+  reference's ``SpanTimer`` has no counterpart here).
 
 Enable end to end with ``AggSpec(..., telemetry=True)``: the trainers
 then aggregate through ``spec.effective_gar`` (``obs-<gar>``) and their
@@ -28,16 +31,13 @@ from repro_torch.obs.forensics import (dense_diagnostics, make_obs,
 from repro_torch.obs.schema import (METRIC_SCHEMA, async_extras,
                                     core_metrics, global_norm,
                                     selection_weight)
-from repro_torch.obs.trace import (EVENT_FIELDS, SpanTimer, named_span,
-                                   span_event)
+from repro_torch.obs.trace import named_span
 
 __all__ = [
     "AggDiagnostics",
     "DEFAULT_OBS_CAPACITY",
-    "EVENT_FIELDS",
     "METRIC_SCHEMA",
     "MetricsBuffer",
-    "SpanTimer",
     "async_extras",
     "core_metrics",
     "dense_diagnostics",
@@ -53,7 +53,6 @@ __all__ = [
     "selection_collapsed",
     "selection_entropy",
     "selection_weight",
-    "span_event",
     "suspicion_scores",
     "to_jsonable",
     "tree_diagnostics",

@@ -50,6 +50,7 @@ import torch
 from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.models import decode_step, init_cache, prefill
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.trace import named_span
 
 __all__ = ["Request", "ServingEngine"]
 
@@ -237,43 +238,53 @@ class ServingEngine:
         slot = self._free_slot()
         if slot is None:
             return False
+        with named_span("serve/admit", rid=req.rid,
+                        prompt_len=len(req.prompt), slot=slot):
+            self._admit(req, slot)
+        return True
+
+    def _admit(self, req: Request, slot: int) -> None:
         req.generated = []
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int32),
                                  device=self.device)[None, :]
-        if self.ensemble is None:
-            logits, slot_cache = prefill(self.params, self.cfg, tokens,
-                                         cache_len=self.cache_len)
-            first = int(torch.argmax(logits[0, -1]))
-        else:
-            agg_logits, slot_cache, _ = self._ens_prefill(self.params,
-                                                          tokens)
-            first = int(torch.argmax(agg_logits[0]))
-        self._splice_cache(slot, slot_cache)
-        if self.ensemble is not None:
-            # a reused slot must not inherit the previous occupant's
-            # window / momentum history or replica trust
-            from repro_torch.dist.serve_robust import reset_slot_state
-            self.agg_state = reset_slot_state(self.agg_state, slot)
-        if self.spec_k:
-            from repro_torch.serving.speculative import draft_cache_view
-            self.draft_cache = self._spliced(
-                self.draft_cache, slot,
-                draft_cache_view(slot_cache, self.draft_replica, self.mesh,
-                                 self.n_replicas),
-                replicated=False)
+        with named_span("serve/prefill", rid=req.rid):
+            if self.ensemble is None:
+                logits, slot_cache = prefill(self.params, self.cfg, tokens,
+                                             cache_len=self.cache_len)
+                last = logits[0, -1]
+            else:
+                agg_logits, slot_cache, _ = self._ens_prefill(self.params,
+                                                              tokens)
+                last = agg_logits[0]
+        first = int(torch.argmax(last))
+        with named_span("serve/splice", rid=req.rid):
+            self._splice_cache(slot, slot_cache)
+            if self.ensemble is not None:
+                # a reused slot must not inherit the previous occupant's
+                # window / momentum history or replica trust
+                from repro_torch.dist.serve_robust import reset_slot_state
+                self.agg_state = reset_slot_state(self.agg_state, slot)
+            if self.spec_k:
+                from repro_torch.serving.speculative import draft_cache_view
+                self.draft_cache = self._spliced(
+                    self.draft_cache, slot,
+                    draft_cache_view(slot_cache, self.draft_replica,
+                                     self.mesh, self.n_replicas),
+                    replicated=False)
         self.active[slot] = req
         self.positions[slot] = len(req.prompt)
         self.last_token[slot] = first
         req.generated.append(first)
-        return True
 
     def submit(self, req: Request) -> None:
         """Queue a request for admission at the next :meth:`step`."""
         self.pending.append(req)
 
-    def _admit_pending(self) -> None:
+    def _admit_pending(self) -> int:
+        admitted = 0
         while self.pending and self._free_slot() is not None:
-            self.admit(self.pending.pop(0))
+            admitted += bool(self.admit(self.pending.pop(0)))
+        return admitted
 
     # -- one decode step across all slots -------------------------------------
 
@@ -281,35 +292,44 @@ class ServingEngine:
         """Admit queued requests into free slots, then decode the batch
         (one token per active slot; 1 to k in speculative mode).  A
         no-op when nothing is active or queued."""
-        self._admit_pending()
-        if not any(r is not None for r in self.active):
-            return
-        if self.spec_k:
-            self._step_speculative()
-            return
+        with named_span("serve/step") as span:
+            admitted = self._admit_pending()
+            active = sum(r is not None for r in self.active)
+            span.note(active=active, admitted=admitted)
+            if not active:
+                return
+            if self.spec_k:
+                self._step_speculative()
+            else:
+                self._step_tokens()
+
+    def _step_tokens(self) -> None:
         tokens = torch.as_tensor(self.last_token,
                                  device=self.device)[:, None]
         # per-slot positions: each sequence ropes and writes at its own
         # index; the host copy also seeds a random logits attack
         pos = self.positions.copy()
-        if self.ensemble is None:
-            logits, self.cache = self._decode(self.params, self.cache,
-                                              tokens, pos)
-            step_logits = logits[:, 0]
-        else:
-            step_logits, self.cache, _res, self.agg_state = self._decode(
-                self.params, self.cache, tokens, pos, self.agg_state)
-        nxt = torch.argmax(step_logits, dim=-1).to(torch.int32).cpu() \
-            .numpy()
-        for i, req in enumerate(self.active):
-            if req is None:
-                continue
-            self.last_token[i] = nxt[i]
-            req.generated.append(int(nxt[i]))
-            self.positions[i] += 1
-            if len(req.generated) >= req.max_new_tokens:
-                req.done = True
-                self.active[i] = None
+        with named_span("serve/decode"):
+            if self.ensemble is None:
+                logits, self.cache = self._decode(self.params, self.cache,
+                                                  tokens, pos)
+                step_logits = logits[:, 0]
+            else:
+                step_logits, self.cache, _res, self.agg_state = \
+                    self._decode(self.params, self.cache, tokens, pos,
+                                 self.agg_state)
+        with named_span("serve/sample"):
+            nxt = torch.argmax(step_logits, dim=-1).to(torch.int32).cpu() \
+                .numpy()
+            for i, req in enumerate(self.active):
+                if req is None:
+                    continue
+                self.last_token[i] = nxt[i]
+                req.generated.append(int(nxt[i]))
+                self.positions[i] += 1
+                if len(req.generated) >= req.max_new_tokens:
+                    req.done = True
+                    self.active[i] = None
 
     def _step_speculative(self) -> None:
         """Draft ``k - 1``, verify ``k``, emit 1 to ``k`` per slot; the
@@ -318,22 +338,25 @@ class ServingEngine:
         pos = self.positions.copy()
         block, self.draft_cache = self._propose(
             self.draft_params, self.draft_cache, tokens, pos)
-        agg_logits, self.cache, _diag, self.agg_state = self._verify(
-            self.params, self.cache, block, pos, self.agg_state)
-        emitted, count, _v = self._accept(block, agg_logits)
-        emitted = emitted.to(torch.int32).cpu().numpy()
-        count = count.to(torch.int32).cpu().numpy()
-        self.accept_counts.append(count.copy())
-        for i, req in enumerate(self.active):
-            if req is None:
-                continue
-            c = min(int(count[i]), req.max_new_tokens - len(req.generated))
-            req.generated.extend(int(t) for t in emitted[i, :c])
-            self.positions[i] += c
-            self.last_token[i] = int(emitted[i, c - 1])
-            if len(req.generated) >= req.max_new_tokens:
-                req.done = True
-                self.active[i] = None
+        with named_span("serve/decode"):
+            agg_logits, self.cache, _diag, self.agg_state = self._verify(
+                self.params, self.cache, block, pos, self.agg_state)
+        with named_span("serve/sample"):
+            emitted, count, _v = self._accept(block, agg_logits)
+            emitted = emitted.to(torch.int32).cpu().numpy()
+            count = count.to(torch.int32).cpu().numpy()
+            self.accept_counts.append(count.copy())
+            for i, req in enumerate(self.active):
+                if req is None:
+                    continue
+                c = min(int(count[i]),
+                        req.max_new_tokens - len(req.generated))
+                req.generated.extend(int(t) for t in emitted[i, :c])
+                self.positions[i] += c
+                self.last_token[i] = int(emitted[i, c - 1])
+                if len(req.generated) >= req.max_new_tokens:
+                    req.done = True
+                    self.active[i] = None
 
     def telemetry(self) -> Dict:
         """The aggregation forensics, drained to host numpy.
