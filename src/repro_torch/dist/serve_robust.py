@@ -11,7 +11,8 @@ module is the serving side of ``repro_torch.dist.robust``:
 * replicas are a stacked parameter tree, every leaf with a leading
   ``(n_replicas,)`` axis (:func:`stack_replicas` /
   :func:`replicate_params`); the steps run the replicas through
-  ``torch.func.vmap`` over that axis;
+  ``torch.func.vmap`` over that axis, and the decode and verify steps
+  write the replica-stacked cache (:func:`replicate_cache`) in place;
 * poisoning reuses the training side's attacks:
   :func:`poison_replicas` rewrites the last ``f`` replicas' parameters
   through ``inject_byzantine``, and ``spec.attack`` poisons the stacked
@@ -76,8 +77,8 @@ from repro_torch.dist.sharding import (P, gather_replicas, gather_shard,
                                        local_ensemble, local_shape,
                                        local_shard, logits_pspec, model_dim)
 from repro_torch.dist.train import _RANDOM_ATTACKS, _attack_generator
-from repro_torch.models import decode_step, prefill, verify_step
-from repro_torch.models.decode import logits_split
+from repro_torch.models import prefill
+from repro_torch.models.decode import decode_step_, logits_split, verify_step_
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import named_span
 
@@ -550,13 +551,17 @@ def make_robust_serve_step(cfg: ModelConfig, spec: AggSpec, mesh=None,
 
     Returns:
       ``serve_step(stacked_params, stacked_cache, token, pos,
-      agg_state=None) -> (agg_logits (B, V), new_cache, diag,
-      new_agg_state)``: one token on every replica (``vmap`` over the
-      replica axis of parameters and caches; the same ``token`` and
-      ``pos`` feed every replica), the attack, then the ``(n, B, V)``
-      stack through ``spec.gar``.  ``pos`` is a scalar or ``(B,)``
-      int32; thread the returned state into the next call (``None`` for
-      a stateless rule).
+      agg_state=None) -> (agg_logits (B, V), stacked_cache, diag,
+      new_agg_state)``: one token on every replica
+      (``models.decode.decode_step_`` under ``vmap`` over the replica
+      axis of parameters and caches; the same ``token`` and ``pos`` feed
+      every replica), the attack, then the ``(n, B, V)`` stack through
+      ``spec.gar``.  The step writes
+      each replica's new keys and values into ``stacked_cache`` in place
+      (the caller owns it: the engine's one persistent buffer) and
+      returns that same tree.  ``pos`` is a scalar or ``(B,)`` int32;
+      thread the returned state into the next call (``None`` for a
+      stateless rule).
     """
     reps = _Replicas(cfg, spec, mesh, n_replicas)
     resolve_distance_backend(spec.distance_backend)
@@ -564,8 +569,8 @@ def make_robust_serve_step(cfg: ModelConfig, spec: AggSpec, mesh=None,
 
     def serve_step(stacked_params, stacked_cache, token: torch.Tensor, pos,
                    agg_state: Optional[AggState] = None):
-        logits, new_cache = reps.forward(
-            lambda p, c, s: decode_step(p, cfg, c, token, pos, shard=s),
+        logits = reps.forward(
+            lambda p, c, s: decode_step_(p, cfg, c, token, pos, shard=s),
             stacked_params, stacked_cache)
         with named_span("serve/aggregate"):
             stack, sliced = reps.stack(
@@ -573,7 +578,7 @@ def make_robust_serve_step(cfg: ModelConfig, spec: AggSpec, mesh=None,
             stack = _maybe_attack_logits(stack, spec, pos)
             agg, diag, new_state = _aggregate(spec, stack, agg_state,
                                               stateful, mesh, sliced)
-        return agg, new_cache, diag, (new_state if stateful else None)
+        return agg, stacked_cache, diag, (new_state if stateful else None)
 
     return serve_step
 
@@ -601,10 +606,12 @@ def make_robust_verify_step(cfg: ModelConfig, spec: AggSpec, mesh=None,
 
     Returns:
       ``verify(stacked_params, stacked_cache, tokens, pos,
-      agg_state=None) -> (agg_logits (B, k, V), new_cache, diag,
-      new_agg_state)``: one ``verify_step`` pass per replica over the
-      ``(B, k)`` block; ``diag`` is a ``DistAggResult`` whose fields
-      lead with a ``(k,)`` axis.
+      agg_state=None) -> (agg_logits (B, k, V), stacked_cache, diag,
+      new_agg_state)``: one ``models.decode.verify_step_`` pass per replica
+      over the ``(B, k)`` block, which writes the block's keys and
+      values into ``stacked_cache`` in place (the caller owns it) and
+      returns that same tree; ``diag`` is a ``DistAggResult`` whose
+      fields lead with a ``(k,)`` axis.
     """
     from repro_torch.dist.robust import DistAggResult
     from repro_torch.models import verify_supported
@@ -618,8 +625,8 @@ def make_robust_verify_step(cfg: ModelConfig, spec: AggSpec, mesh=None,
 
     def verify(stacked_params, stacked_cache, tokens: torch.Tensor, pos,
                agg_state: Optional[AggState] = None):
-        logits, new_cache = reps.forward(
-            lambda p, c, s: verify_step(p, cfg, c, tokens, pos, shard=s),
+        logits = reps.forward(
+            lambda p, c, s: verify_step_(p, cfg, c, tokens, pos, shard=s),
             stacked_params, stacked_cache)
         with named_span("serve/aggregate"):
             stack, sliced = reps.stack(logits.to(torch.float32),
@@ -633,7 +640,7 @@ def make_robust_verify_step(cfg: ModelConfig, spec: AggSpec, mesh=None,
                 aggs.append(agg)
                 diags.append(diag)
         diag = DistAggResult(*(torch.stack(fs) for fs in zip(*diags)))
-        return (torch.stack(aggs, dim=1), new_cache, diag,
+        return (torch.stack(aggs, dim=1), stacked_cache, diag,
                 agg_state if stateful else None)
 
     return verify

@@ -8,11 +8,20 @@ stacked on a leading ``n_periods`` axis (``periods/s{j}``, shapes
 positions; sliding-window and chunked slots keep a ring of ``window`` /
 ``chunk`` positions, so their KV state does not grow with the context.
 
-Every function here returns new caches and never writes one in place
-(each write is an out-of-place ``index_put``), so the serving layer can
-run the replicas of an ensemble through ``torch.func.vmap``.
+The decode core writes the caches in place: :func:`decode_step_` and
+:func:`verify_step_` write each step's keys and values (and a Mamba
+slot's new conv and SSM state) into the ``cache`` tree they are given,
+through views of its stacked leaves, and return only the logits.  The
+caller owns that tree as one persistent buffer (the serving engine's
+``cache`` and ``draft_cache``); no step allocates or copies a whole
+cache leaf.  In-place writes on views of a ``torch.func.vmap``-batched
+leaf land in the caller's storage, so the serving layer runs the
+replicas of an ensemble through ``vmap`` on the core.  The functional
+entry points :func:`decode_step` and :func:`verify_step` clone the tree
+once and call the core, so they leave their input unwritten, as the
+reference's do.
 
-``prefill``, ``decode_step`` and ``verify_step`` take ``shard=`` (a
+``prefill`` and the decode and verify steps take ``shard=`` (a
 ``repro_torch.dist.tensor_parallel.Shard``, ``None`` on one device): the
 parameters are then one rank's slices split over a mesh's ``model``
 axis, in the serving layout (``tensor_parallel.serving_specs``: the
@@ -47,8 +56,9 @@ from repro_torch.models.transformer import (_apply_layer, _entry, _head,
                                             _stacked, _sub, logits_split)
 from repro_torch.obs.trace import named_span
 
-__all__ = ["decode_step", "init_cache", "logits_split", "prefill",
-           "slot_cache_len", "verify_step", "verify_supported"]
+__all__ = ["decode_step", "decode_step_", "init_cache", "logits_split",
+           "prefill", "slot_cache_len", "verify_step", "verify_step_",
+           "verify_supported"]
 
 _RING_SLOTS = ("swa", "chunked")
 
@@ -129,13 +139,13 @@ def _positions(pos, b: int, device) -> torch.Tensor:
 
 
 def _write(cache: torch.Tensor, idx: torch.Tensor,
-           new: torch.Tensor) -> torch.Tensor:
-    """``cache`` with ``new[b, j]`` written at position ``idx[b, j]`` of
-    sequence ``b``: an out-of-place ``index_put`` (``.at[].set``)."""
+           new: torch.Tensor) -> None:
+    """Write ``new[b, j]`` at position ``idx[b, j]`` of sequence ``b``
+    of ``cache``, in place (``index_put_``)."""
     with named_span("model/cache"):
         b = cache.shape[0]
         bidx = torch.arange(b, device=cache.device)[:, None].expand_as(idx)
-        return cache.index_put((bidx, idx.long()), new.to(cache.dtype))
+        cache.index_put_((bidx, idx.long()), new.to(cache.dtype))
 
 
 def _norm(p, key, x, shard) -> torch.Tensor:
@@ -184,29 +194,36 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _run_layers(params, cfg: ModelConfig, cache: dict, x: torch.Tensor,
-                layer_fn, shard=None):
-    """``layer_fn(p, c, x, slot, shard) -> (new_c, x)`` over the periods
-    (in order, the period caches restacked) and then the tail."""
-    period_caches = []
+                layer_fn, shard=None) -> torch.Tensor:
+    """``layer_fn(p, c, x, slot, shard) -> x`` over the periods, in
+    order, and then the tail; each layer's ``c`` is a view of
+    ``cache``'s leaves (a period's entry of the stacked leaves), which
+    ``layer_fn`` writes in place."""
     periods = params["periods"]
     for i in range(_stack_len(periods)):
         period_p, period_s = _entry(periods, i, _sub(shard, "periods"))
         period_c = _stacked(cache["periods"], i)
-        newc = {}
         for j, slot in enumerate(cfg.layer_pattern):
-            newc[f"s{j}"], x = layer_fn(period_p[f"s{j}"],
-                                        period_c[f"s{j}"], x, slot,
-                                        _sub(period_s, f"s{j}"))
-        period_caches.append(newc)
-    with named_span("model/cache"):
-        new_periods = tree_map(lambda *xs: torch.stack(xs), *period_caches)
-    new_tail = {}
+            x = layer_fn(period_p[f"s{j}"], period_c[f"s{j}"], x, slot,
+                         _sub(period_s, f"s{j}"))
     for t in range(cfg.n_tail):
         slot = cfg.slot(cfg.n_periods * cfg.period + t)
-        new_tail[f"t{t}"], x = layer_fn(
-            params["tail"][f"t{t}"], cache["tail"][f"t{t}"], x, slot,
-            _sub(_sub(shard, "tail"), f"t{t}"))
-    return x, {"periods": new_periods, "tail": new_tail}
+        x = layer_fn(params["tail"][f"t{t}"], cache["tail"][f"t{t}"], x,
+                     slot, _sub(_sub(shard, "tail"), f"t{t}"))
+    return x
+
+
+def _step_(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
+           pos, layer, shard=None) -> torch.Tensor:
+    """The logits of ``tokens`` at ``pos`` through every layer's
+    ``layer(p, c, x, cfg, slot, pos, shard) -> x``, which writes its
+    cache ``c`` in place."""
+    x = layers.embed(params["embed"], tokens, shard=_sub(shard, "embed"))
+    pos = _positions(pos, x.shape[0], x.device)
+    x = _run_layers(
+        params, cfg, cache, x,
+        lambda p, c, x, slot, s: layer(p, c, x, cfg, slot, pos, s), shard)
+    return _logits(params, cfg, x, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +234,8 @@ def _decode_attn_slot(p, c, x, cfg: ModelConfig, slot: str, pos,
                       shard=None):
     """One token per sequence, each at its own position ``pos[b]``:
     rope and the cache write use it (ring slots at ``pos % L``, full
-    slots at ``min(pos, L - 1)``)."""
+    slots at ``min(pos, L - 1)``).  Writes ``c``'s k and v in place and
+    returns the layer's attention output."""
     b = x.shape[0]
     hd = cfg.head_dim
     h = _norm(p, "ln", x, shard)
@@ -234,15 +252,12 @@ def _decode_attn_slot(p, c, x, cfg: ModelConfig, slot: str, pos,
         idx = torch.remainder(pos, length)
     else:
         idx = torch.clamp_max(pos, length - 1)
-    kc = _write(c["k"], idx[:, None], k[:, 0:1])
-    vc = _write(c["v"], idx[:, None], v[:, 0:1])
+    _write(c["k"], idx[:, None], k[:, 0:1])
+    _write(c["v"], idx[:, None], v[:, 0:1])
     valid = torch.clamp_max(pos + 1, length)
-    o = decode_attention(q, kc, vc, valid_len=valid)
-    y = _out_proj(o.reshape(b, 1, cfg.n_heads * hd), p["attn"],
-                  _sub(shard, "attn"))
-    newc = dict(c)
-    newc["k"], newc["v"] = kc, vc
-    return newc, y
+    o = decode_attention(q, c["k"], c["v"], valid_len=valid)
+    return _out_proj(o.reshape(b, 1, cfg.n_heads * hd), p["attn"],
+                     _sub(shard, "attn"))
 
 
 def _decode_layer(p, c, x, cfg: ModelConfig, slot: str, pos, shard=None):
@@ -250,23 +265,27 @@ def _decode_layer(p, c, x, cfg: ModelConfig, slot: str, pos, shard=None):
         newc, y = ssm.mamba_decode_step(p["mix"], c,
                                         _norm(p, "ln", x, shard), cfg,
                                         shard=_sub(shard, "mix"))
+        with named_span("model/cache"):
+            for key, leaf in newc.items():
+                c[key].copy_(leaf)
         x = x + y
     else:
-        newc, y = _decode_attn_slot(p, c, x, cfg, slot, pos, shard)
-        x = x + y
+        x = x + _decode_attn_slot(p, c, x, cfg, slot, pos, shard)
         if slot == "xattn":
             x = _cross_part(p, c, x, cfg, shard)
-    return newc, _ffn_part(p, x, cfg, shard)
+    return _ffn_part(p, x, cfg, shard)
 
 
-def decode_step(params, cfg: ModelConfig, cache: dict, token: torch.Tensor,
-                pos, shard=None) -> Tuple[torch.Tensor, dict]:
-    """One token for every sequence of the batch.
+def decode_step_(params, cfg: ModelConfig, cache: dict, token: torch.Tensor,
+                 pos, shard=None) -> torch.Tensor:
+    """One token for every sequence of the batch, its keys and values
+    (and a Mamba slot's new state) written into ``cache`` in place.
 
     Args:
       params: one model's parameter tree.
       cfg: the model configuration.
-      cache: the decode caches (:func:`init_cache` layout).
+      cache: the decode caches (:func:`init_cache` layout), which the
+        caller owns; written in place.
       token: ``(B, 1)`` integer tokens.
       pos: a scalar, or ``(B,)`` int32 per-sequence positions
         (continuous batching: each sequence ropes and writes its cache
@@ -275,16 +294,25 @@ def decode_step(params, cfg: ModelConfig, cache: dict, token: torch.Tensor,
         slices in the serving layout; see the module docstring).
 
     Returns:
-      ``(logits (B, 1, V), new_cache)``; ``V`` is this rank's columns
-      when :func:`logits_split`.
+      ``logits (B, 1, V)``; ``V`` is this rank's columns when
+      :func:`logits_split`.
     """
-    x = layers.embed(params["embed"], token, shard=_sub(shard, "embed"))
-    pos = _positions(pos, x.shape[0], x.device)
-    x, new_cache = _run_layers(
-        params, cfg, cache, x,
-        lambda p, c, x, slot, s: _decode_layer(p, c, x, cfg, slot, pos, s),
-        shard)
-    return _logits(params, cfg, x, shard), new_cache
+    return _step_(params, cfg, cache, token, pos, _decode_layer, shard)
+
+
+def decode_step(params, cfg: ModelConfig, cache: dict, token: torch.Tensor,
+                pos, shard=None) -> Tuple[torch.Tensor, dict]:
+    """:func:`decode_step_` on a copy of ``cache``: ``cache`` is left
+    unwritten.
+
+    Args:
+      params, cfg, cache, token, pos, shard: as :func:`decode_step_`'s.
+
+    Returns:
+      ``(logits (B, 1, V), new_cache)``.
+    """
+    cache = tree_map(torch.clone, cache)
+    return decode_step_(params, cfg, cache, token, pos, shard), cache
 
 
 # ---------------------------------------------------------------------------
@@ -324,8 +352,8 @@ def verify_supported(cfg: ModelConfig) -> Tuple[bool, str]:
 def _verify_attn_slot(p, c, x, cfg: ModelConfig, slot: str, pos,
                       shard=None):
     """One attention layer over a ``(B, S)`` block, token ``j`` at
-    position ``pos + j``: all S keys are written first, then each query
-    attends its own causal prefix."""
+    position ``pos + j``: all S keys are written into ``c`` in place
+    first, then each query attends its own causal prefix."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     qpos = pos[:, None] + torch.arange(s, dtype=torch.int32,
@@ -344,55 +372,60 @@ def _verify_attn_slot(p, c, x, cfg: ModelConfig, slot: str, pos,
             f"caches cannot roll back rejected draft tokens)")
     length = c["k"].shape[1]
     idx = torch.clamp_max(qpos, length - 1)
-    kc = _write(c["k"], idx, k)
-    vc = _write(c["v"], idx, v)
+    _write(c["k"], idx, k)
+    _write(c["v"], idx, v)
     q_valid = torch.clamp_max(qpos + 1, length)
-    o = verify_attention(q, kc, vc, q_valid=q_valid)
-    y = _out_proj(o.reshape(b, s, cfg.n_heads * hd), p["attn"],
-                  _sub(shard, "attn"))
-    newc = dict(c)
-    newc["k"], newc["v"] = kc, vc
-    return newc, y
+    o = verify_attention(q, c["k"], c["v"], q_valid=q_valid)
+    return _out_proj(o.reshape(b, s, cfg.n_heads * hd), p["attn"],
+                     _sub(shard, "attn"))
 
 
 def _verify_layer(p, c, x, cfg: ModelConfig, slot: str, pos, shard=None):
-    newc, y = _verify_attn_slot(p, c, x, cfg, slot, pos, shard)
-    x = x + y
+    x = x + _verify_attn_slot(p, c, x, cfg, slot, pos, shard)
     if slot == "xattn":
         x = _cross_part(p, c, x, cfg, shard)
-    return newc, _ffn_part(p, x, cfg, shard)
+    return _ffn_part(p, x, cfg, shard)
 
 
-def verify_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
-                pos, shard=None) -> Tuple[torch.Tensor, dict]:
-    """A causal block of ``S`` tokens in one forward pass.
+def verify_step_(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
+                 pos, shard=None) -> torch.Tensor:
+    """A causal block of ``S`` tokens in one forward pass, its keys and
+    values written into ``cache`` in place.
 
     ``tokens[:, j]`` is consumed at position ``pos + j`` and
     ``logits[:, j]`` predicts the token at ``pos + j + 1``: what ``S``
-    sequential :func:`decode_step` calls on the same tokens give, with
+    sequential :func:`decode_step_` calls on the same tokens give, with
     one pass.  Needs full attention caches (:func:`verify_supported`).
 
     Args:
       params: one model's parameter tree.
       cfg: the model configuration.
-      cache: the decode caches.
+      cache: the decode caches, which the caller owns; the block's ``S``
+        keys and values are written into every attention layer's cache.
       tokens: ``(B, S)`` integer tokens.
       pos: a scalar, or ``(B,)`` int32 position of ``tokens[:, 0]``.
       shard: ``None``, or the ``Shard`` of ``params`` (as
-        :func:`decode_step`'s).
+        :func:`decode_step_`'s).
 
     Returns:
-      ``(logits (B, S, V), new_cache)`` with the block's ``S`` keys and
-      values written into every attention layer's cache; ``V`` as
-      :func:`decode_step`'s.
+      ``logits (B, S, V)``; ``V`` as :func:`decode_step_`'s.
     """
-    x = layers.embed(params["embed"], tokens, shard=_sub(shard, "embed"))
-    pos = _positions(pos, x.shape[0], x.device)
-    x, new_cache = _run_layers(
-        params, cfg, cache, x,
-        lambda p, c, x, slot, s: _verify_layer(p, c, x, cfg, slot, pos, s),
-        shard)
-    return _logits(params, cfg, x, shard), new_cache
+    return _step_(params, cfg, cache, tokens, pos, _verify_layer, shard)
+
+
+def verify_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
+                pos, shard=None) -> Tuple[torch.Tensor, dict]:
+    """:func:`verify_step_` on a copy of ``cache``: ``cache`` is left
+    unwritten.
+
+    Args:
+      params, cfg, cache, tokens, pos, shard: as :func:`verify_step_`'s.
+
+    Returns:
+      ``(logits (B, S, V), new_cache)``.
+    """
+    cache = tree_map(torch.clone, cache)
+    return verify_step_(params, cfg, cache, tokens, pos, shard), cache
 
 
 # ---------------------------------------------------------------------------
@@ -438,12 +471,12 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
       cache_len: positions of a full attention cache (``0``: ``S``).
       impl: attention path, ``"auto"`` | ``"naive"`` | ``"blockwise"``.
       shard: ``None``, or the ``Shard`` of ``params`` (as
-        :func:`decode_step`'s; attention then splits over ``model`` as
+        :func:`decode_step_`'s; attention then splits over ``model`` as
         the training forward's does, ``cfg.attn_shard``).
 
     Returns:
       ``(logits (B, S, V), cache)`` in :func:`init_cache`'s layout;
-      ``V`` as :func:`decode_step`'s.
+      ``V`` as :func:`decode_step_`'s.
     """
     b, s = tokens.shape
     cache_len = cache_len or s

@@ -8,6 +8,10 @@ decodes one token for every active slot.  Requests queue through
 into free slots (prefill of the prompt, spliced into the batched
 cache), so a slot freed by a finished request is refilled mid-stream.
 Each slot carries its own position.  Greedy sampling; no paged KV.
+The engine owns its batched cache (and the draft's) as one persistent
+buffer: every decode step, verify block and admission writes it in
+place (``models.decode.decode_step_`` / ``verify_step_``,
+:meth:`_splice`).
 
 **Ensemble mode** (``ensemble=AggSpec(...)``): ``params`` is a
 replica-stacked tree (``repro_torch.dist.serve_robust``), caches are
@@ -48,7 +52,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.pytree import tree_leaves, tree_map
-from repro_torch.models import decode_step, init_cache, prefill
+from repro_torch.models import init_cache, prefill
+from repro_torch.models.decode import decode_step_
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import named_span
 
@@ -74,7 +79,7 @@ class ServingEngine:
     """Fixed-slot continuous-batching engine (optionally ensemble-robust).
 
     Plain mode: ``params`` is one parameter tree and each step is one
-    ``decode_step`` over all slots.  Ensemble mode (``ensemble=`` a
+    ``decode_step_`` over all slots.  Ensemble mode (``ensemble=`` a
     ``repro_torch.agg.AggSpec``): ``params`` is a replica-stacked tree
     (or a list of per-replica trees, stacked on entry), each step
     decodes every replica and aggregates the logits stack before greedy
@@ -121,8 +126,8 @@ class ServingEngine:
             self.device = tree_leaves(params)[0].device
             self.cache = init_cache(cfg, n_slots, cache_len,
                                     device=self.device)
-            self._decode = lambda p, c, t, pos: decode_step(p, cfg, c, t,
-                                                            pos)
+            self._decode = lambda p, c, t, pos: (
+                decode_step_(p, cfg, c, t, pos), c)
             return
         # -- ensemble mode ----------------------------------------------------
         from repro_torch.dist.serve_robust import (_mesh_of,
@@ -200,30 +205,28 @@ class ServingEngine:
         return None
 
     @staticmethod
-    def _spliced(cache, slot: int, slot_cache, replicated: bool):
-        """One slot's freshly prefilled cache written into a batched
-        cache (a new tree; the input is not written).
+    def _splice(cache, slot: int, slot_cache, replicated: bool) -> None:
+        """Write one slot's freshly prefilled cache into row ``slot`` of
+        a batched cache, in place (``copy_``): the batched cache is the
+        engine's own persistent buffer, and no leaf of it is copied
+        whole.
 
         Period caches are ``(n_periods, B, ...)``, tail caches ``(B,
         ...)``; with ``replicated`` both carry a leading replica axis.
         """
         def write(axis: int):
             def fn(full, one):
-                out = full.clone()
-                index = (slice(None),) * axis + (slot,)
-                out[index] = one[(slice(None),) * axis + (0,)]
-                return out
+                lead = (slice(None),) * axis
+                full[lead + (slot,)].copy_(one[lead + (0,)])
             return fn
 
         lead = 1 if replicated else 0
-        return {"periods": tree_map(write(lead + 1), cache["periods"],
-                                    slot_cache["periods"]),
-                "tail": tree_map(write(lead), cache["tail"],
-                                 slot_cache["tail"])}
+        tree_map(write(lead + 1), cache["periods"], slot_cache["periods"])
+        tree_map(write(lead), cache["tail"], slot_cache["tail"])
 
     def _splice_cache(self, slot: int, slot_cache) -> None:
-        self.cache = self._spliced(self.cache, slot, slot_cache,
-                                   self.ensemble is not None)
+        self._splice(self.cache, slot, slot_cache,
+                     self.ensemble is not None)
 
     def admit(self, req: Request) -> bool:
         """Admit one request into a free slot (False when full).
@@ -266,11 +269,10 @@ class ServingEngine:
                 self.agg_state = reset_slot_state(self.agg_state, slot)
             if self.spec_k:
                 from repro_torch.serving.speculative import draft_cache_view
-                self.draft_cache = self._spliced(
-                    self.draft_cache, slot,
-                    draft_cache_view(slot_cache, self.draft_replica,
-                                     self.mesh, self.n_replicas),
-                    replicated=False)
+                self._splice(self.draft_cache, slot,
+                             draft_cache_view(slot_cache, self.draft_replica,
+                                              self.mesh, self.n_replicas),
+                             replicated=False)
         self.active[slot] = req
         self.positions[slot] = len(req.prompt)
         self.last_token[slot] = first

@@ -28,9 +28,8 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.core.pytree import tree_map
-from repro_torch.models import decode_step
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.decode import logits_split
+from repro_torch.models.decode import decode_step_, logits_split
 
 __all__ = ["accept_block", "draft_cache_view", "make_draft_propose"]
 
@@ -39,7 +38,7 @@ def make_draft_propose(cfg: ModelConfig, k: int, shard=None) -> Callable:
     """Build the greedy draft proposer for block length ``k``.
 
     Entries the draft writes for later-rejected proposals sit above the
-    slot's accepted position, where ``decode_step``'s ``valid_len``
+    slot's accepted position, where ``decode_step_``'s ``valid_len``
     masks them until the next block overwrites them, so the draft cache
     needs no rollback.
 
@@ -54,9 +53,11 @@ def make_draft_propose(cfg: ModelConfig, k: int, shard=None) -> Callable:
 
     Returns:
       ``propose(draft_params, draft_cache, token, pos) -> (block,
-      new_draft_cache)``: ``k - 1`` greedy ``decode_step`` calls from the
-      last emitted ``token`` (``(B,)`` int32 at positions ``pos``), and
-      the ``(B, k)`` block ``[t0, d1, ..., d_{k-1}]``.  At ``k = 1`` no
+      draft_cache)``: ``k - 1`` greedy ``models.decode.decode_step_``
+      calls from the last emitted ``token`` (``(B,)`` int32 at
+      positions ``pos``), each writing ``draft_cache`` in place (the
+      caller owns it), and the ``(B, k)`` block ``[t0, d1, ...,
+      d_{k-1}]``; the returned cache is the tree given.  At ``k = 1`` no
       draft runs: the block is ``token[:, None]`` and the cache passes
       through untouched.
     """
@@ -75,8 +76,8 @@ def make_draft_propose(cfg: ModelConfig, k: int, shard=None) -> Callable:
         p = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
         block = [token]
         for _ in range(k - 1):
-            logits, draft_cache = decode_step(draft_params, cfg, draft_cache,
-                                              tok[:, None], p, shard=shard)
+            logits = decode_step_(draft_params, cfg, draft_cache,
+                                  tok[:, None], p, shard=shard)
             if split:
                 logits = shard.gather(logits, -1)
             tok = torch.argmax(logits[:, 0, :], dim=-1).to(token.dtype)

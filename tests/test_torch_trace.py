@@ -283,11 +283,11 @@ def test_serving_engine_spans_and_tokens_on_and_off():
     steps = [r for r in rows if r["name"] == "serve/step"]
     assert sum(r["attrs"]["admitted"] for r in steps) == 3
     assert steps[0]["attrs"] == {"active": 2, "admitted": 2}
-    # per decode step: k and v of each layer, and the periods' restack
+    # per decode step: the in-place writes of k and v of each layer
     decodes = [k for k, r in enumerate(rows) if r["name"] == "serve/decode"]
     caches = [r for r in rows if r["name"] == "model/cache"
               and r["parent"] == decodes[0]]
-    assert len(caches) == 2 * CFG.n_layers + 1
+    assert len(caches) == 2 * CFG.n_layers
     for k in range(len(rows)):
         if rows[k]["parent"] is not None:
             assert _inside(rows, k)
