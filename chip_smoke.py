@@ -244,8 +244,9 @@ Phases, in order; any failure exits nonzero before the last line:
 11. One JSON line of per-kernel measurements (phase 8's K1, selection and
    K4 on the embedding leaf, phase 9a's K1, selection, K4 and K5 on the
    serving stack, 9d's K5 on a rank's gathered stack and K1 on a rank's
-   vocabulary slice, and phase 10a's K1 on a rank's embedding slice added),
-   then the result line ``{"ok": true, "device": {...}}``.
+   vocabulary slice, phase 10a's K1 on a rank's embedding slice and
+   phase 13's grouped GEMM added), then the result line
+   ``{"ok": true, "device": {...}}``.
 12. The launch harness (``repro_torch.launch``), after phase 10 and
    before the JSON lines.  (12a) ``python -m repro_torch.launch.dryrun``
    as subprocesses, all started together, on the cases of the
@@ -269,6 +270,21 @@ Phases, in order; any failure exits nonzero before the last line:
    step), and the predicted argument bytes must not exceed the rank's
    measured peak; the predicted argument + temp bytes and the roofline
    terms are printed beside the measured peak and ms per step.
+13. The grouped GEMM of the dropless expert layer
+   (``repro_torch/kernels/grouped_gemm.py``, after phase 12 and before
+   the JSON lines), at one worker pass of one expert layer of the
+   ``deepseek-v2-lite-l5`` cell: 4,096 tokens x top-6 pairs sorted by
+   expert in a 24,576-row buffer, the 8 held experts of 64 with the rows
+   a seeded uniform router gives them (3,060 in all), D = 2,048,
+   F = 1,408.  The forward (``gmm``), dX (``gmm`` with the weights
+   transposed) and dW (``gmm_dw``) each against the per-group
+   ``torch.mm`` loop at 1e-5 of its largest entry (``GMM_TOL``), the
+   rows of no group exactly 0, each call launching ``grouped_gemm`` once
+   and nothing else (counters reset just before it); then each one's
+   CUDA-event time (L2 flushed), its kernel's device time, its bound and
+   the loop's times (the loop is the plain version and the library
+   call: it reads the group sizes on the host).  The forward must beat
+   the loop on CUDA events.
 """
 from __future__ import annotations
 
@@ -309,6 +325,8 @@ REPLACES = {
     "fused_aggregate": "src/repro/kernels/fused_agg.py:271",
     "bulyan_select": "src/repro/kernels/bulyan_select.py:41",
     "coord_stats": "src/repro/kernels/coord_stats.py:29",
+    "grouped_gemm": "none: the port's own (the JAX package's MoE is the "
+                    "GShard einsum dispatch)",
 }
 SOURCES = {
     "pairwise_gram_partial": "src/repro_torch/csrc/pairwise_gram.cu",
@@ -317,6 +335,7 @@ SOURCES = {
     "fused_aggregate": "src/repro_torch/csrc/fused_agg.cu",
     "bulyan_select": "src/repro_torch/csrc/bulyan_select.cu",
     "coord_stats": "src/repro_torch/csrc/coord_stats.cu",
+    "grouped_gemm": "src/repro_torch/csrc/grouped_gemm.cu",
 }
 #: K2's theta in every size bucket of the register sort and at its edges
 K2_THETAS = (3, 8, 9, 16, 17, 21, 24, 25, 40, 48, 49, 64)
@@ -401,9 +420,10 @@ class Timer:
             total += start.elapsed_time(end)
         return total / reps
 
-    def device_ms(self, fn, reps: int) -> float:
+    def device_ms(self, fn, reps: int, only: tuple = ()) -> float:
         """Device time per call of ``fn``'s own kernels (torch.profiler,
-        the flush's fill kernel left out), over ``reps`` calls timed as
+        the flush's fill kernel left out; with ``only``, just the kernels
+        whose names hold one of its strings), over ``reps`` calls timed as
         :meth:`ms` times them.  A profile that recorded no device time is
         taken once more; 0.0 if that one is empty too."""
         from torch.profiler import ProfilerActivity, profile
@@ -418,7 +438,8 @@ class Timer:
                 torch.cuda.synchronize()
             us = 0.0
             for ev in prof.key_averages():
-                if "FillFunctor" in ev.key:
+                if "FillFunctor" in ev.key or (
+                        only and not any(k in ev.key for k in only)):
                     continue
                 t = getattr(ev, "self_device_time_total", None)
                 us += t if t is not None else getattr(
@@ -1123,14 +1144,18 @@ def run_model(torch, rt, kind, steps, runs):
     return trainer
 
 
-#: the port's kernels as the profiler names them
-PORT_KERNELS = ("gram_kernel", "select_kernel", "combine_single_kernel",
-                "combine_bulyan_kernel", "coord_stats_kernel")
+#: the port's aggregation kernels as the profiler names them
+AGG_KERNELS = ("gram_kernel", "select_kernel", "combine_single_kernel",
+               "combine_bulyan_kernel", "coord_stats_kernel")
+#: the port's kernels as the profiler names them: the aggregation's and
+#: the grouped GEMM's (forward and dX, dW)
+PORT_KERNELS = AGG_KERNELS + ("gmm_rows_kernel", "gmm_dw_kernel")
 #: the port's profiler spans (``repro_torch.obs.trace.named_span``): the
 #: profiler lists each with the device time of the kernels under it, so
 #: they are not kernels of their own
 SPANS = ("agg/coordinate", "agg/gram", "agg/select", "kernel/fused",
-         "model/cache", "serve/admit", "serve/aggregate", "serve/decode",
+         "model/cache", "model/mla", "moe/experts", "moe/route",
+         "moe/shared", "serve/admit", "serve/aggregate", "serve/decode",
          "serve/prefill", "serve/sample", "serve/splice", "serve/step",
          "train/aggregate", "train/attack", "train/grad", "train/opt",
          "train/step")
@@ -1162,7 +1187,7 @@ def profile_steps(torch, trainer, batcher, start: int, steps: int) -> dict:
             rows.append((us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    agg_ms = sum(r[0] for r in rows if any(k in r[2] for k in PORT_KERNELS))
+    agg_ms = sum(r[0] for r in rows if any(k in r[2] for k in AGG_KERNELS))
     return {"wall_ms": wall_ms, "steps": steps, "device_ms": device_ms,
             "agg_ms": agg_ms, "top": rows[:10]}
 
@@ -3670,6 +3695,107 @@ def phase_launch_hold(torch, np, rt, mesh: dict, serve: dict, smi: str):
     print(f"  12b: the holds took {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+# ---------------------------------------------------------------------------
+# phase 13: the grouped GEMM of the dropless expert layer
+# ---------------------------------------------------------------------------
+
+#: one worker pass of one expert layer of the ``deepseek-v2-lite-l5``
+#: cell: tokens, top-k, routed experts, held experts, D and F
+GMM_TOKENS, GMM_TOPK, GMM_EXPERTS, GMM_HELD = 4096, 6, 64, 8
+GMM_D, GMM_F = 2048, 1408
+#: the kernel against the per-group ``torch.mm`` loop, over the loop's
+#: largest entry: both sum the same 2,048 (1,408; ~384 for dW) fp32
+#: products per entry, in different orders
+GMM_TOL = 1e-5
+
+
+def gmm_bound(rows: int, groups: int, k: int, n: int) -> dict:
+    """Least time of one grouped product, ``(rows, k)`` times each
+    group's ``(k, n)`` (dW: the rows' ``(k, rows)`` times ``(rows, n)``
+    per group): the rows of both operands or the weights read once and
+    the result written once over the memory rate, ``2 rows k n`` FLOPs
+    over the fp32 peak, the larger."""
+    nbytes = 4 * (rows * (k + n) + groups * k * n)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * rows * k * n / PEAK_FP32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_grouped_gemm(torch, rt, timer, smi) -> dict:
+    """13: the forward, dX and dW of the grouped GEMM at the cell's
+    shapes against the per-group loop, their launches and times.
+    Returns ``{"rows": {case: row}, "launches": {case: count}}``."""
+    gg, build = rt["grouped_gemm"], rt["build"]
+    ops = torch.ops.repro_torch
+    m = GMM_TOKENS * GMM_TOPK
+    g = torch.Generator().manual_seed(0)
+    picks = torch.rand(GMM_TOKENS, GMM_EXPERTS, generator=g).argsort(
+        dim=1)[:, :GMM_TOPK]
+    sizes = [int((picks == e).sum()) for e in range(GMM_HELD)]
+    held = sum(sizes)
+    offs = torch.tensor([0] + torch.tensor(sizes).cumsum(0).tolist(),
+                        device="cuda")
+    s, e = offs[:-1], offs[1:]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(m, GMM_D, generator=gen, device="cuda")
+    w = torch.randn(GMM_HELD, GMM_D, GMM_F, generator=gen,
+                    device="cuda") * GMM_D ** -0.5
+    dy = torch.randn(m, GMM_F, generator=gen, device="cuda")
+
+    def loop_dw():
+        return torch.stack([x[a:b].T @ dy[a:b]
+                            for a, b in zip(s.tolist(), e.tolist())])
+
+    # case: (kernel, the per-group loop, its kernel's name, (k, n))
+    cases = {
+        "forward": (lambda: ops.gmm(x, w, s, e, False, -1),
+                    lambda: gg.grouped_mm_plain(x, w, s.tolist(),
+                                                e.tolist()),
+                    "gmm_rows_kernel", (GMM_D, GMM_F)),
+        "dX": (lambda: ops.gmm(dy, w, s, e, True, -1),
+               lambda: gg.grouped_mm_plain(dy, w, s.tolist(), e.tolist(),
+                                           trans_w=True),
+               "gmm_rows_kernel", (GMM_F, GMM_D)),
+        "dW": (lambda: ops.gmm_dw(x, dy, s, e), loop_dw, "gmm_dw_kernel",
+               (GMM_D, GMM_F)),
+    }
+    want_launches = dict.fromkeys(build.LAUNCHES, 0)
+    want_launches["grouped_gemm"] = 1
+    rows, launches = {}, {}
+    for name, (kern, loop, kname, (k, n)) in cases.items():
+        got, counts = counted(torch, build, kern)
+        expect_launches(counts, want_launches, f"13 grouped GEMM {name}")
+        launches[name] = counts["grouped_gemm"]
+        want = loop()
+        err, rel, scale = scaled_err(got, want)
+        expect(rel <= GMM_TOL, f"13 grouped GEMM {name}: {rel:.3e} of "
+               f"{scale:.3e}")
+        if name != "dW":
+            expect(bool(torch.all(got[held:] == 0)),
+                   f"13 grouped GEMM {name}: rows of no group not 0")
+        loop_ms = timer.ms(loop, 20)
+        rows[name] = dict(
+            ms=timer.ms(kern, 20),
+            device_ms=timer.device_ms(kern, 10, only=(kname,)),
+            plain_ms=loop_ms, library_ms=loop_ms,
+            library_device_ms=timer.device_ms(loop, 10), max_abs_err=err,
+            **gmm_bound(held, GMM_HELD, k, n))
+        r = rows[name]
+        print(f"  ok  13 grouped GEMM {name}: {held:,} rows in {GMM_HELD} "
+              f"groups ({sizes}) of a {m:,}-row buffer, k {k}, n {n}: "
+              f"{err:.3e} off the per-group loop ({rel:.2e} of {scale:.4e}); "
+              f"launches {launches[name]}; kernel {r['ms']:.4f} ms "
+              f"(device {r['device_ms']:.4f})  loop {r['plain_ms']:.4f} ms "
+              f"(device {r['library_device_ms']:.4f})  bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); "
+              f"{100 * r['bound_ms'] / r['device_ms']:.1f}% of it ({smi})",
+              flush=True)
+    expect(rows["forward"]["ms"] < rows["forward"]["plain_ms"],
+           f"13 grouped GEMM forward {rows['forward']['ms']:.4f} ms, not "
+           f"faster than the loop's {rows['forward']['plain_ms']:.4f}")
+    return {"rows": rows, "launches": launches}
+
 
 def print_ptxas(log: pathlib.Path) -> None:
     """One line per kernel of an ``-Xptxas -v`` build log: its (mangled)
@@ -3719,6 +3845,7 @@ def main() -> int:
     from repro_torch.dist.robust import (distributed_aggregate,
                                          inject_byzantine)
     from repro_torch.kernels import _build, ops as kernel_ops, probes
+    from repro_torch.kernels import grouped_gemm
     # the package exports functions under the names of these modules, as
     # the reference's does, so the modules come from the import system
     bulyan_select, coord_stats, fused_agg, pairwise_gram = (
@@ -3782,7 +3909,7 @@ def main() -> int:
               per_worker_specs=sharding.per_worker_specs,
               make_async_train_step=async_train.make_async_train_step,
               init_async_state=async_train.init_async_state,
-              dryrun=dryrun)
+              dryrun=dryrun, grouped_gemm=grouped_gemm)
     ops = {"fused_agg": fused_agg, "pairwise_gram": pairwise_gram,
            "bulyan_select": bulyan_select, "coord_stats": coord_stats}
 
@@ -3899,6 +4026,10 @@ def main() -> int:
     print(f"  phase 12 took {time.perf_counter() - t12:.1f} s ({smi})",
           flush=True)
 
+    print("== phase 13: the grouped GEMM (the dropless expert layer)",
+          flush=True)
+    gmm = phase_grouped_gemm(torch, rt, timer, smi)
+
     kernels = []
     for model, kind in (("mlp", "mnist"), ("cnn", "cifar")):
         for name, r in timings[model].items():
@@ -3956,6 +4087,16 @@ def main() -> int:
             "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches, "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
+    for case, row in gmm["rows"].items():
+        kernels.append({
+            "name": f"grouped_gemm:{case}@deepseek-v2-lite-l5",
+            "route": "cuda", "source": SOURCES["grouped_gemm"],
+            "replaces": REPLACES["grouped_gemm"],
+            "launches": gmm["launches"][case],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
     print(f"  the script took {time.perf_counter() - t_start:.1f} s "

@@ -39,6 +39,9 @@ ALIASES = {
     "gemma3-1b": "gemma3_1b",
     "llama4-scout-17b-a16e": "llama4_scout",
     "llama-3.2-vision-11b": "llama3_2_vision",
+    # the port's own configuration, outside ARCH_IDS: the JAX package has
+    # no latent attention nor dropless expert layer to hold it against
+    "deepseek-v2-lite": "deepseek_v2_lite",
 }
 
 

@@ -468,6 +468,8 @@ def make_train_step(cfg: ModelConfig, spec: DistByzantineSpec,
       reference's names (under a mesh the same on every rank, up to the
       order of the reductions over ``model``).
     """
+    if mesh is not None and cfg.unsupported("mesh"):
+        raise NotImplementedError(cfg.unsupported("mesh"))
     loss_fn = make_loss_fn(cfg, impl)
     rule = spec.rule()
     stateful = rule.stateful

@@ -12,7 +12,9 @@ launch (or an explicit :func:`build_all`) does it.
 Each wrapper counts its launches in :data:`LAUNCHES` (a plain integer per
 kernel), so a run can show that it went through the kernels.  K5
 (``fused_aggregate``) launches nothing of its own; its count is the sum
-of the K1, selection and K4 launches it made.
+of the K1, selection and K4 launches it made.  ``grouped_gemm`` counts
+the grouped GEMM's forward, dX and dW launches (the dropless expert
+layer).
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ __all__ = ["LAUNCHES", "build_all", "check", "count", "library",
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = (pathlib.Path(__file__).resolve().parents[3] / "build"
           / "repro_torch_kernels")
-_SOURCES = ("pairwise_gram", "fused_agg", "bulyan_select", "coord_stats")
+_SOURCES = ("pairwise_gram", "fused_agg", "bulyan_select", "coord_stats",
+            "grouped_gemm")
 _ARCH = "arch=compute_90a,code=sm_90a"
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -58,13 +61,18 @@ _SIGNATURES = {
         "coord_stats_f32": [_VP, _I, _LL, _I, _VP, _VP, _VP],
         "coord_stats_bf16": [_VP, _I, _LL, _I, _VP, _VP, _VP],
     },
+    "grouped_gemm": {
+        "gmm_rows_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP, _I,
+                         _VP, _I, _I, _VP],
+        "gmm_dw_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP],
+    },
 }
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"pairwise_gram_partial": 0,
                             "select_weights": 0, "fused_coordinate": 0,
                             "fused_aggregate": 0, "bulyan_select": 0,
-                            "coord_stats": 0}
+                            "coord_stats": 0, "grouped_gemm": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -96,40 +96,45 @@ def _sqrt_d(d: int, device) -> torch.Tensor:
 
 
 def attention_naive(q, k, v, *, kind: str = "attn", window: int = 0,
-                    chunk: int = 0, q_offset: int = 0) -> torch.Tensor:
+                    chunk: int = 0, q_offset: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Materialized-scores attention.
 
     Args:
       q: ``(B, Sq, Hq, D)`` queries.
       k: ``(B, Sk, Hkv, D)`` keys.
-      v: ``(B, Sk, Hkv, D)`` values.
+      v: ``(B, Sk, Hkv, Dv)`` values (``Dv`` may differ from ``D``, as
+        MLA's).
       kind: ``"attn"`` (causal), ``"swa"``, ``"chunked"``, ``"bidir"`` or
         ``"cross"``.
       window: the ``swa`` window.
       chunk: the ``chunked`` span.
       q_offset: position of the first query.
+      scale: the scores' factor (``None``: over ``sqrt(D)`` rounded to
+        fp32).
 
     Returns:
-      ``(B, Sq, Hq, D)`` in ``v``'s dtype.
+      ``(B, Sq, Hq, Dv)`` in ``v``'s dtype.
     """
     b, sq, hq, d = q.shape
     sk = k.shape[1]
-    scores = _gqa_scores(q, k) / _sqrt_d(d, q.device)
+    scores = (_gqa_scores(q, k) / _sqrt_d(d, q.device) if scale is None
+              else _gqa_scores(q, k) * scale)
     q_pos = q_offset + torch.arange(sq, device=q.device)
     k_pos = torch.arange(sk, device=q.device)
     bias = _mask_bias(q_pos, k_pos, kind, window, chunk)
     scores = scores + bias[None, None, None]
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
-    return out.reshape(b, sq, hq, d)
+    return out.reshape(b, sq, hq, v.shape[-1])
 
 
 # -- blockwise (flash-style) path --------------------------------------------
 
 def attention_blockwise(q, k, v, *, kind: str = "attn", window: int = 0,
                         chunk: int = 0, q_offset: int = 0,
-                        block_q: int = 1024,
-                        block_k: int = 1024) -> torch.Tensor:
+                        block_q: int = 1024, block_k: int = 1024,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax attention with ``O(block_q * block_k)`` live scores.
 
     A static loop over q blocks; for the causal and local kinds the k
@@ -137,15 +142,16 @@ def attention_blockwise(q, k, v, *, kind: str = "attn", window: int = 0,
     sliding-window and chunked layouts), as in the reference.
 
     Args:
-      q, k, v, kind, window, chunk, q_offset: as :func:`attention_naive`
-        (``q_offset`` a Python int).
+      q, k, v, kind, window, chunk, q_offset, scale: as
+        :func:`attention_naive` (``q_offset`` a Python int).
       block_q: queries per block.
       block_k: keys per block.
 
     Returns:
-      ``(B, Sq, Hq, D)`` in ``q``'s dtype.
+      ``(B, Sq, Hq, Dv)`` in ``q``'s dtype.
     """
     b, sq, hq, d = q.shape
+    dv = v.shape[-1]
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     block_q = min(block_q, sq)
@@ -159,7 +165,8 @@ def attention_blockwise(q, k, v, *, kind: str = "attn", window: int = 0,
         v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
     nq = q.shape[1] // block_q
     nk = k.shape[1] // block_k
-    scale = 1.0 / float(d) ** 0.5
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
     dev = q.device
 
     outs = []
@@ -177,14 +184,14 @@ def attention_blockwise(q, k, v, *, kind: str = "attn", window: int = 0,
             elif kind == "chunked" and chunk > 0:
                 lo_blk = max(0, ((q_lo // chunk) * chunk) // block_k)
         if hi_blk - lo_blk <= 0:
-            outs.append(torch.zeros((b, block_q, hq, d), dtype=q.dtype,
+            outs.append(torch.zeros((b, block_q, hq, dv), dtype=q.dtype,
                                     device=dev))
             continue
         m = torch.full((b, block_q, hkv, g), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((b, block_q, hkv, g), dtype=torch.float32,
                         device=dev)
-        acc = torch.zeros((b, block_q, hkv, g, d), dtype=torch.float32,
+        acc = torch.zeros((b, block_q, hkv, g, dv), dtype=torch.float32,
                           device=dev)
         for ik in range(lo_blk, hi_blk):
             kb = k[:, ik * block_k:(ik + 1) * block_k]
@@ -202,22 +209,23 @@ def attention_blockwise(q, k, v, *, kind: str = "attn", window: int = 0,
                 "bqhgk,bkhd->bqhgd", p.to(vb.dtype), vb).to(torch.float32)
             m = m_new
         o = acc / torch.clamp_min(l[..., None], 1e-30)
-        outs.append(o.reshape(b, block_q, hq, d).to(q.dtype))
+        outs.append(o.reshape(b, block_q, hq, dv).to(q.dtype))
     return torch.cat(outs, dim=1)[:, :sq]
 
 
 def attention(q, k, v, *, kind: str = "attn", window: int = 0,
-              chunk: int = 0, q_offset: int = 0,
-              impl: str = "auto") -> torch.Tensor:
+              chunk: int = 0, q_offset: int = 0, impl: str = "auto",
+              scale: Optional[float] = None) -> torch.Tensor:
     """Attention through ``impl``: ``"naive"``, ``"blockwise"`` or
     ``"auto"`` (blockwise once either sequence exceeds 8192, as the
-    reference decides)."""
+    reference decides); ``scale`` as :func:`attention_naive`'s."""
     if impl == "auto":
         impl = ("blockwise" if max(q.shape[1], k.shape[1]) > 8192
                 else "naive")
     fn = attention_blockwise if impl == "blockwise" else attention_naive
+    kw = {} if scale is None else {"scale": scale}
     return fn(q, k, v, kind=kind, window=window, chunk=chunk,
-              q_offset=q_offset)
+              q_offset=q_offset, **kw)
 
 
 # -- decode (single new token against a cache) --------------------------------

@@ -96,6 +96,14 @@ def _init_slot_cache(cfg: ModelConfig, slot: str, batch: int,
     return c
 
 
+def _require_serving(cfg: ModelConfig) -> None:
+    """``NotImplementedError`` naming what serving lacks for ``cfg`` (an
+    ``mla`` slot's latent cache, the grouped expert layer's decode)."""
+    why = cfg.unsupported("serving")
+    if why:
+        raise NotImplementedError(why)
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device="cuda") -> dict:
     """Zeroed decode caches for ``batch`` sequences.
@@ -112,6 +120,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
       leaves are ``(n_periods, batch, ...)``, tail leaves ``(batch,
       ...)``, in ``cfg.param_dtype`` (a Mamba state in fp32).
     """
+    _require_serving(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg.param_dtype)
     periods = {}
@@ -218,6 +227,7 @@ def _step_(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
     """The logits of ``tokens`` at ``pos`` through every layer's
     ``layer(p, c, x, cfg, slot, pos, shard) -> x``, which writes its
     cache ``c`` in place."""
+    _require_serving(cfg)
     x = layers.embed(params["embed"], tokens, shard=_sub(shard, "embed"))
     pos = _positions(pos, x.shape[0], x.device)
     x = _run_layers(
@@ -478,6 +488,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
       ``(logits (B, S, V), cache)`` in :func:`init_cache`'s layout;
       ``V`` as :func:`decode_step_`'s.
     """
+    _require_serving(cfg)
     b, s = tokens.shape
     cache_len = cache_len or s
     x = layers.embed(params["embed"], tokens, shard=_sub(shard, "embed"))

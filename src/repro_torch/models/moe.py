@@ -24,6 +24,11 @@ process-wide toggle: when set, expert ``wi`` / ``wg`` are taken
 column-parallel and ``wo`` row-parallel at their use, whatever dims
 their storage splits (re-laid out there), as the reference's sharding
 constraint pins them.
+
+:func:`grouped_moe_ffn` is the dropless layer of a held share
+(``cfg.moe_impl == "grouped"``, DeepSeek-V2's routed experts), which the
+JAX package does not have: routing over every expert, the held experts'
+tokens multiplied in a grouped GEMM, no capacity.
 """
 from __future__ import annotations
 
@@ -31,10 +36,14 @@ import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels.grouped_gemm import COUNTER_EXPERTS, grouped_mm
 from repro_torch.models import layers
+from repro_torch.obs.trace import named_span
 
-__all__ = ["EXPERT_WEIGHT_GATHER", "init_moe", "moe_ffn"]
+__all__ = ["EXPERT_WEIGHT_GATHER", "grouped_moe_ffn", "grouped_route",
+           "init_grouped_moe", "init_moe", "moe_ffn"]
 
 #: process-wide toggle (set by the launcher, read at call time): under a
 #: shard, expert weights are re-laid out to tensor-parallel-only specs at
@@ -186,3 +195,112 @@ def moe_ffn(p: dict, x: torch.Tensor, *, top_k: int, act: str,
         out = out + layers.ffn(p["shared"], x, act,
                                None if shard is None else shard["shared"])
     return out, _aux_loss(gates, gate_idx, e)
+
+
+# ---------------------------------------------------------------------------
+# the dropless expert layer on a held share (DeepSeek-V2's routed experts)
+# ---------------------------------------------------------------------------
+
+def init_grouped_moe(gen: torch.Generator, cfg, dtype,
+                     lead: Tuple[int, ...] = ()) -> dict:
+    """Router ``(d, moe_experts)`` (fp32: it scores every expert), the
+    held experts' FFNs stacked on an expert axis of ``held_experts``,
+    and the shared FFN of width ``expert_d_ff * moe_shared``."""
+    d, width = cfg.d_model, cfg.expert_d_ff
+    p = {"router": layers.he_init(gen, (d, cfg.moe_experts), torch.float32,
+                                  lead=lead),
+         "experts": layers.init_ffn(gen, d, width, cfg.ffn_act, dtype,
+                                    lead=tuple(lead) + (cfg.held_experts,))}
+    if cfg.moe_shared > 0:
+        p["shared"] = layers.init_ffn(gen, d, width * cfg.moe_shared,
+                                      cfg.ffn_act, dtype, lead=lead)
+    return p
+
+
+def grouped_route(router: torch.Tensor, xt: torch.Tensor, cfg):
+    """Scores ``(T, E)`` (softmax over every expert, fp32) and the greedy
+    top-k gate values and experts ``(T, k)``, the lower index first
+    among ties; the gates renormalized when ``cfg.moe_norm_topk``, then
+    times ``cfg.moe_scaling``."""
+    scores = torch.softmax(xt.to(torch.float32) @ router, dim=-1)
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :cfg.moe_top_k], idx[:, :cfg.moe_top_k]
+    if cfg.moe_norm_topk:
+        vals = vals / torch.clamp_min(
+            torch.sum(vals, dim=-1, keepdim=True), 1e-20)
+    return scores, vals * cfg.moe_scaling, idx
+
+
+def _seq_aux_loss(scores: torch.Tensor, idx: torch.Tensor, b: int,
+                  cfg) -> torch.Tensor:
+    """DeepSeek's sequence-wise balance loss: per sequence, each expert's
+    share of the top-k picks over ``k / E``, times its mean score,
+    summed over experts; the mean over sequences times the weight."""
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    picks = _one_hot(idx.reshape(b, -1), e, torch.float32).sum(dim=1)
+    s = idx.shape[0] // b
+    ce = picks / (s * k / e)
+    mean_score = scores.reshape(b, s, e).mean(dim=1)
+    return cfg.moe_seq_aux * torch.mean(torch.sum(ce * mean_score, dim=-1))
+
+
+def grouped_moe_ffn(p: dict, x: torch.Tensor, cfg, layer: int = -1
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dropless routed experts of the held share, plus the shared FFN.
+
+    Every token is routed over all ``cfg.moe_experts`` experts
+    (:func:`grouped_route`); of its top-k (token, expert) pairs, those
+    whose expert is held (``[moe_held_start, moe_held_start +
+    held_experts)``) are sorted by expert, stably, so a group holds its
+    tokens in token order, and each group is multiplied by its expert's
+    FFN in the grouped GEMM (``repro_torch.kernels.grouped_gemm``): no
+    capacity, no token dropped, and no row counts read on the host.
+    The pairs of the experts not held come last and take no product;
+    their gates are zeroed.  Each token's output is the sum over its
+    pairs, in its top-k order, of gate times the expert's output, plus
+    the shared FFN.  What the absent experts would add lies on other
+    chips and is left out.
+
+    Args:
+      p: :func:`init_grouped_moe`'s parameters.
+      x: ``(B, S, D)`` activations.
+      cfg: the model configuration.
+      layer: the layer's index, whose row-counter slots the first
+        product's groups count into (``-1``: none).
+
+    Returns:
+      ``(out (B, S, D), aux)``: ``aux`` the sequence-wise balance loss
+      times ``cfg.moe_seq_aux`` (0 when the weight is 0).
+    """
+    b, s, d = x.shape
+    t, k, h = b * s, cfg.moe_top_k, cfg.held_experts
+    xt = x.reshape(t, d)
+    with named_span("moe/route"):
+        scores, vals, idx = grouped_route(p["router"], xt, cfg)
+        local = idx.reshape(-1) - cfg.moe_held_start
+        held = (local >= 0) & (local < h)
+        local = torch.where(held, local, torch.full_like(local, h))
+        order = torch.argsort(local, stable=True)
+        counts = torch.sum(_one_hot(local, h, torch.int32), dim=0,
+                           dtype=torch.int32)
+        offsets = torch.cat([torch.zeros_like(counts[:1]),
+                             torch.cumsum(counts, dim=0, dtype=torch.int32)])
+        rows = xt[torch.div(order, k, rounding_mode="floor")]
+        gates = torch.where(held, vals.reshape(-1), torch.zeros_like(
+            vals.reshape(-1))).reshape(t, k)
+    with named_span("moe/experts"):
+        w = p["experts"]
+        base = layer * COUNTER_EXPERTS if layer >= 0 else -1
+        hid = (F.silu(grouped_mm(rows, w["wg"], offsets, base))
+               * grouped_mm(rows, w["wi"], offsets))
+        y = grouped_mm(hid, w["wo"], offsets)
+        # back to (token, top-k slot) order
+        y = y[torch.argsort(order)].reshape(t, k, d)
+        out = torch.einsum("tkd,tk->td", y, gates.to(y.dtype))
+    out = out.to(x.dtype).reshape(b, s, d)
+    if "shared" in p:
+        with named_span("moe/shared"):
+            out = out + layers.ffn(p["shared"], x, cfg.ffn_act)
+    aux = (_seq_aux_loss(scores, idx, b, cfg) if cfg.moe_seq_aux > 0
+           else torch.zeros((), dtype=torch.float32, device=x.device))
+    return out, aux

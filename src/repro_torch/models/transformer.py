@@ -34,7 +34,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core.pytree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
-from repro_torch.models import layers, moe, ssm
+from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.attention import attention, rope
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _dtype
@@ -72,6 +72,8 @@ def _init_slot(gen, cfg: ModelConfig, slot: str, layer_idx: int, dtype,
     p: Dict[str, Any] = {"ln": layers.init_rmsnorm(d, dtype, dev, lead)}
     if slot == "mamba":
         p["mix"] = ssm.init_mamba(gen, cfg, dtype, lead=lead)
+    elif slot == "mla":
+        p["attn"] = mla.init_mla(gen, cfg, dtype, lead)
     else:
         p["attn"] = _init_attn(gen, cfg, dtype, lead)
         if slot == "xattn":
@@ -81,8 +83,12 @@ def _init_slot(gen, cfg: ModelConfig, slot: str, layer_idx: int, dtype,
         p["ln_f"] = layers.init_rmsnorm(d, dtype, dev, lead)
         act = "gelu" if enc else cfg.ffn_act
         if not enc and cfg.is_moe_layer(layer_idx):
-            p["moe"] = moe.init_moe(gen, d, cfg.d_ff, cfg.moe_experts,
-                                    cfg.moe_shared, act, dtype, lead=lead)
+            if cfg.moe_impl == "grouped":
+                p["moe"] = moe.init_grouped_moe(gen, cfg, dtype, lead=lead)
+            else:
+                p["moe"] = moe.init_moe(gen, d, cfg.d_ff, cfg.moe_experts,
+                                        cfg.moe_shared, act, dtype,
+                                        lead=lead)
         else:
             p["ffn"] = layers.init_ffn(gen, d, cfg.d_ff, act, dtype,
                                        lead=lead)
@@ -105,9 +111,11 @@ def init_model(key: Union[int, torch.Generator], cfg: ModelConfig,
 
     Returns:
       The nested parameter dict: ``embed``, ``final_norm``,
-      ``lm_head`` (untied), ``periods/s{j}`` (stacked on a leading axis
-      of ``max(n_periods, 1)``, as the reference), ``tail/t{t}`` and,
-      for an encoder, ``encoder/{layers, final_norm}``.
+      ``lm_head`` (untied), ``lead/l{i}`` (the ``n_dense_lead`` leading
+      dense layers, when there are any), ``periods/s{j}`` (stacked on a
+      leading axis of ``max(n_periods, 1)``, as the reference),
+      ``tail/t{t}`` and, for an encoder, ``encoder/{layers,
+      final_norm}``.
     """
     if isinstance(key, torch.Generator):
         gen = key
@@ -125,13 +133,18 @@ def init_model(key: Union[int, torch.Generator], cfg: ModelConfig,
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.init_linear(gen, cfg.d_model,
                                                cfg.vocab_size, dtype)
+    if cfg.n_dense_lead > 0:
+        params["lead"] = {
+            f"l{i}": _init_slot(gen, cfg, cfg.slot(i), i, dtype)
+            for i in range(cfg.n_dense_lead)}
     lead = (max(cfg.n_periods, 1),)
     params["periods"] = {
-        f"s{j}": _init_slot(gen, cfg, slot, j, dtype, lead=lead)
+        f"s{j}": _init_slot(gen, cfg, slot, cfg.n_dense_lead + j, dtype,
+                            lead=lead)
         for j, slot in enumerate(cfg.layer_pattern)}
     tail = {}
     for t in range(cfg.n_tail):
-        layer_idx = cfg.n_periods * cfg.period + t
+        layer_idx = cfg.n_dense_lead + cfg.n_periods * cfg.period + t
         tail[f"t{t}"] = _init_slot(gen, cfg, cfg.slot(layer_idx),
                                    layer_idx, dtype)
     params["tail"] = tail
@@ -247,10 +260,12 @@ def _cross_attention(p, x, enc_out, cfg: ModelConfig,
 
 def _apply_layer(p, x, cfg: ModelConfig, slot: str, positions, enc_out,
                  impl: str, shard=None,
-                 keep: Optional[dict] = None
+                 keep: Optional[dict] = None, layer: int = -1
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer: ``(x, aux)`` after it; ``keep`` (a dict) receives an
-    attention slot's keys and values (see :func:`_self_attention`)."""
+    attention slot's keys and values (see :func:`_self_attention`);
+    ``layer`` is its index, which a grouped expert layer counts its rows
+    under."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def norm(key):
@@ -259,6 +274,9 @@ def _apply_layer(p, x, cfg: ModelConfig, slot: str, positions, enc_out,
     if slot == "mamba":
         x = x + ssm.mamba_forward(p["mix"], norm("ln"), cfg,
                                   shard=_sub(shard, "mix"))
+    elif slot == "mla":
+        x = x + mla.mla_attention(p["attn"], norm("ln"), cfg, positions,
+                                  impl)
     else:
         x = x + _self_attention(p["attn"], norm("ln"), cfg, slot, positions,
                                 impl, _sub(shard, "attn"), keep)
@@ -268,6 +286,10 @@ def _apply_layer(p, x, cfg: ModelConfig, slot: str, positions, enc_out,
     if "ffn" in p:
         x = x + layers.ffn(p["ffn"], norm("ln_f"), cfg.ffn_act,
                            shard=_sub(shard, "ffn"))
+    elif "moe" in p and cfg.moe_impl == "grouped":
+        y, a = moe.grouped_moe_ffn(p["moe"], norm("ln_f"), cfg, layer)
+        x = x + y
+        aux = aux + a
     elif "moe" in p:
         y, a = moe.moe_ffn(p["moe"], norm("ln_f"), top_k=cfg.moe_top_k,
                            act=cfg.ffn_act,
@@ -321,11 +343,13 @@ def _run_encoder(params, cfg: ModelConfig, enc_embeds: torch.Tensor,
 
 
 def _period(period_p, x, aux, cfg: ModelConfig, positions, enc_out,
-            impl: str, shard):
-    """One period's layers: ``(x, aux)`` after them."""
+            impl: str, shard, layer0: int):
+    """One period's layers: ``(x, aux)`` after them; ``layer0`` is the
+    index of its first layer."""
     for j, slot in enumerate(cfg.layer_pattern):
         x, a = _apply_layer(period_p[f"s{j}"], x, cfg, slot, positions,
-                            enc_out, impl, _sub(shard, f"s{j}"))
+                            enc_out, impl, _sub(shard, f"s{j}"),
+                            layer=layer0 + j)
         aux = aux + a
     return x, aux
 
@@ -385,6 +409,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
       a shard whose output table splits on the vocabulary, ``V`` is this
       rank's columns, ``[index * V, (index + 1) * V)`` of the whole.
     """
+    if shard is not None and cfg.unsupported("mesh"):
+        raise NotImplementedError(cfg.unsupported("mesh"))
     x = layers.embed(params["embed"], tokens, shard=_sub(shard, "embed"))
     if cfg.arch_type == "audio":
         assert extra is not None, "whisper needs encoder frame embeddings"
@@ -397,16 +423,21 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
 
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_dense_lead):
+        x, a = _apply_layer(params["lead"][f"l{i}"], x, cfg, cfg.slot(i),
+                            positions, enc_out, impl, layer=i)
+        aux = aux + a
     periods = params["periods"]
+    first = cfg.n_dense_lead
     for i in range(_stack_len(periods)):
         period_p, period_s = _entry(periods, i, _sub(shard, "periods"))
         x, aux = _run(_period, shard, period_p, x, aux, cfg, positions,
-                      enc_out, impl, period_s)
+                      enc_out, impl, period_s, first + i * cfg.period)
     for t in range(cfg.n_tail):
-        slot = cfg.slot(cfg.n_periods * cfg.period + t)
+        layer = first + cfg.n_periods * cfg.period + t
         x, a = _run(_apply_layer, shard, params["tail"][f"t{t}"], x, cfg,
-                    slot, positions, enc_out, impl,
-                    _sub(_sub(shard, "tail"), f"t{t}"))
+                    cfg.slot(layer), positions, enc_out, impl,
+                    _sub(_sub(shard, "tail"), f"t{t}"), None, layer)
         aux = aux + a
 
     x = layers.rmsnorm(params["final_norm"], x,

@@ -7,7 +7,9 @@ their phases (``train/step`` ⊃ ``train/grad``, ``train/attack``,
 ``train/aggregate`` ⊃ ``agg/*``, ``train/opt``; ``serve/step`` ⊃
 ``serve/admit`` ⊃ ``serve/prefill``, ``serve/splice``; ``serve/decode``
 ⊃ ``model/cache``, ``serve/aggregate``; ``serve/sample``;
-``kernel/fused``).  While a ``torch.profiler`` profile runs, each span
+``kernel/fused``; in the forward of a latent-attention layer
+``model/mla``, of a grouped expert layer ``moe/route``, ``moe/experts``
+and ``moe/shared``, whose backward kernels fall under ``train/grad``).  While a ``torch.profiler`` profile runs, each span
 is a ``torch.profiler.record_function``, so a profile that records the
 host's operators groups the kernels and operators of each phase under
 its name; outside a profile it makes none (a ``record_function`` costs

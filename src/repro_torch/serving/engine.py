@@ -107,6 +107,9 @@ class ServingEngine:
     def __init__(self, params, cfg: ModelConfig, n_slots: int = 4,
                  cache_len: int = 512, sampler: str = "greedy",
                  ensemble=None, mesh=None):
+        why = cfg.unsupported("serving")
+        if why:
+            raise NotImplementedError(why)
         self.cfg = cfg
         self.n_slots = n_slots
         self.cache_len = cache_len

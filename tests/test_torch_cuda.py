@@ -180,7 +180,7 @@ def test_launches_are_counted_once_per_kernel(card):
     assert _build.LAUNCHES == {"pairwise_gram_partial": 1,
                                "select_weights": 1, "fused_coordinate": 1,
                                "fused_aggregate": 3, "bulyan_select": 0,
-                               "coord_stats": 0}
+                               "coord_stats": 0, "grouped_gemm": 0}
     _build.reset_launches()
     fa.fused_aggregate(x, 2, mode="cwmed")
     assert _build.LAUNCHES["fused_coordinate"] == 1
@@ -707,7 +707,7 @@ def test_robust_serve_step_on_the_card_matches_the_cpu(card):
     tokens = np.asarray([[1, 2, 3, 4, 5], [6, 7, 8, 9, 10]], np.int32)
     want = {"pairwise_gram_partial": 1, "select_weights": 1,
             "fused_coordinate": 1, "fused_aggregate": 3, "bulyan_select": 0,
-            "coord_stats": 0}
+            "coord_stats": 0, "grouped_gemm": 0}
     aggs, caches = {}, {}
     for dev in params:
         _build.reset_launches()
@@ -836,3 +836,65 @@ def test_two_gloo_ranks_serve_through_k5(card):
         assert float((got - want).abs().max()) <= 1e-4 * float(
             want.abs().max())
         assert run["streams"] == single["streams"]
+
+
+# ---------------------------------------------------------------------------
+# the grouped GEMM of the dropless expert layer
+# ---------------------------------------------------------------------------
+
+def _groups(sizes, extra, card):
+    from itertools import accumulate
+    offs = torch.tensor([0] + list(accumulate(sizes)), device=card)
+    return offs, sum(sizes) + extra
+
+
+@pytest.mark.parametrize("k,n", [(64, 96), (136, 40), (512, 72)])
+def test_grouped_gemm_matches_its_oracle(card, k, n):
+    """Forward, the transposed product (dX) and dW against the per-group
+    ``torch.mm`` loop, on groups of 0, 1, 130, 127 and 300 rows with 37
+    rows past the last: empty groups, ragged tiles, rows of no group
+    zero; the row counter counts each group once per counted call."""
+    from repro_torch.kernels import grouped_gemm as gg
+    sizes = [0, 1, 130, 127, 300]
+    offs, m = _groups(sizes, 37, card)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(m, k, generator=g).to(card)
+    w = torch.randn(len(sizes), k, n, generator=g).to(card)
+    dy = torch.randn(m, n, generator=g).to(card)
+    s, e = offs[:-1], offs[1:]
+    gg.reset_expert_rows()
+    _build.reset_launches()
+    got = torch.ops.repro_torch.gmm(x, w, s, e, False, 3 * gg.COUNTER_EXPERTS)
+    want = gg.grouped_mm_plain(x, w, s.tolist(), e.tolist())
+    assert _rel(got, want) < 1e-5 and torch.all(got[sum(sizes):] == 0)
+    got = torch.ops.repro_torch.gmm(dy, w, s, e, True, -1)
+    want = gg.grouped_mm_plain(dy, w, s.tolist(), e.tolist(), trans_w=True)
+    assert _rel(got, want) < 1e-5
+    got = torch.ops.repro_torch.gmm_dw(x, dy, s, e)
+    want = torch.stack([x[a:b].T @ dy[a:b] for a, b in
+                        zip(s.tolist(), e.tolist())])
+    assert _rel(got, want) < 1e-5 and torch.all(got[0] == 0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["grouped_gemm"] == 3
+    assert gg.expert_rows()[3, :len(sizes)].tolist() == sizes
+
+
+def test_grouped_gemm_vmap_grad_on_the_card(card):
+    """The train step's form: ``vmap(grad)`` over 3 workers with their
+    own groups, against the CPU oracle's gradients."""
+    from repro_torch.kernels import grouped_gemm as gg
+    g = torch.Generator().manual_seed(4)
+    k, n, m = 32, 48, 200
+    w = torch.randn(4, k, n, generator=g)
+    x = torch.randn(3, m, k, generator=g)
+    offs = torch.tensor([[0, 50, 50, 120, 190], [0, 0, 200, 200, 200],
+                         [0, 10, 20, 30, 40]])
+
+    def loss(xb, wb, ob):
+        y = gg.grouped_mm(xb, wb, ob)
+        return (y * y).sum()
+    grad = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)),
+                           in_dims=(0, None, 0))
+    gx, gw = grad(x, w, offs)
+    cx, cw = grad(x.to(card), w.to(card), offs.to(card))
+    assert _rel(cx.cpu(), gx) < 1e-5 and _rel(cw.cpu(), gw) < 1e-5

@@ -473,7 +473,7 @@ def test_kernel_wrappers_meta_branch():
     assert _build.LAUNCHES == {
         "pairwise_gram_partial": 2, "select_weights": 2,
         "fused_coordinate": 2, "fused_aggregate": 3, "bulyan_select": 1,
-        "coord_stats": 1}
+        "coord_stats": 1, "grouped_gemm": 0}
     _build.reset_launches()
     with pytest.raises(TypeError):
         pairwise_gram.pairwise_gram_partial(x.to(torch.float16))
