@@ -175,7 +175,12 @@ Phases, in order; any failure exits nonzero before the last line:
    launches must read one K5 (K1 1, select 1, K4 1; K2 / K3 0) and the
    poisoned replica's weight 0; the first decode step's gathered (8, 4,
    262,144) stack must match a single-device 8-replica run's (its own
-   process) at 1e-4 of its largest entry, and each rank's aggregate and
+   process) in the honest replicas' rows at 1e-4 of their largest
+   entry; the poisoned replica's row, which rounding moves far more, is
+   held on the single-device run's own first-step inputs (token,
+   positions, that replica's cache), where the rank's row and one
+   device's must each lie within 1e-3 of its largest entry from the
+   step in float64 (``hold_first_step``); each rank's aggregate and
    selection must equal ``aggregate_logits`` on one device on that stack
    bit for bit (scores at 1e-4); the ranks' streams must equal each other
    and the single-device run's by the serving tests' rule
@@ -244,8 +249,9 @@ Phases, in order; any failure exits nonzero before the last line:
 11. One JSON line of per-kernel measurements (phase 8's K1, selection and
    K4 on the embedding leaf, phase 9a's K1, selection, K4 and K5 on the
    serving stack, 9d's K5 on a rank's gathered stack and K1 on a rank's
-   vocabulary slice, phase 10a's K1 on a rank's embedding slice and
-   phase 13's grouped GEMM added), then the result line
+   vocabulary slice, phase 10a's K1 on a rank's embedding slice,
+   phase 13's grouped GEMM and phase 14's decode attention added), then
+   the result line
    ``{"ok": true, "device": {...}}``.
 12. The launch harness (``repro_torch.launch``), after phase 10 and
    before the JSON lines.  (12a) ``python -m repro_torch.launch.dryrun``
@@ -285,6 +291,24 @@ Phases, in order; any failure exits nonzero before the last line:
    the loop's times (the loop is the plain version and the library
    call: it reads the group sizes on the host).  The forward must beat
    the loop on CUDA events.
+14. The decode attention over the serving cache
+   (``repro_torch/kernels/decode_attention.py``, after phase 13 and
+   before the JSON lines), at the ``qwen1.5-4b-l4.serve-chat`` cell's
+   shapes: one layer's period view of a replica-stacked cache (7
+   replicas x 4 periods x 12 slots x 2,048 positions x 20 heads of 128,
+   fp32), every replica's query of one decode step through ``vmap`` as
+   the robust step runs it, the slots' lengths mixing 1, 127, 128, 129,
+   1,020, 2,047 and 2,048.  Against the plain path as the parent's
+   decode step ran it (the ``einsum`` body under ``vmap``) at 1e-5 of
+   its largest entry, one ``decode_attention`` launch counted and
+   nothing else; then CUDA-event ms (L2 flushed), the kernel's device
+   ms, the bound (the K/V bytes up to each valid length, the queries
+   and the output, at 3.35 TB/s), the plain path's times and
+   ``F.scaled_dot_product_attention``'s on a dense copy with a boolean
+   mask (a yardstick the port never calls), and the ptxas lines of the
+   kernel's instances.  The kernel must beat the plain path's device
+   time and reach 55% of its bound (its device time from a profile that
+   recorded every launch: one that lost some is taken again).
 """
 from __future__ import annotations
 
@@ -310,6 +334,12 @@ PEAK_FP32_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 
 FP32_TOL = 1e-4
+#: a poisoned replica's decode-step row (weights sign-flipped x 10, so
+#: attention scores 100 times the honest ones') against the same step in
+#: float64 on the same inputs, over the row's largest entry: 2.5 times
+#: the largest the card has read (4.02e-4, 9d's split forward and one
+#: device's, with the decode attention's kernel or the plain einsums)
+POISONED_TOL = 1e-3
 BF16_TOL = 5e-2
 N_MAIN, F_MAIN = 39, 9
 D_MLP, D_CNN = 79_510, 486_346
@@ -327,6 +357,8 @@ REPLACES = {
     "coord_stats": "src/repro/kernels/coord_stats.py:29",
     "grouped_gemm": "none: the port's own (the JAX package's MoE is the "
                     "GShard einsum dispatch)",
+    "decode_attention": "none: the port's own (the JAX package's "
+                        "decode_attention is plain jnp)",
 }
 SOURCES = {
     "pairwise_gram_partial": "src/repro_torch/csrc/pairwise_gram.cu",
@@ -336,6 +368,7 @@ SOURCES = {
     "bulyan_select": "src/repro_torch/csrc/bulyan_select.cu",
     "coord_stats": "src/repro_torch/csrc/coord_stats.cu",
     "grouped_gemm": "src/repro_torch/csrc/grouped_gemm.cu",
+    "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
 }
 #: K2's theta in every size bucket of the register sort and at its edges
 K2_THETAS = (3, 8, 9, 16, 17, 21, 24, 25, 40, 48, 49, 64)
@@ -420,23 +453,28 @@ class Timer:
             total += start.elapsed_time(end)
         return total / reps
 
-    def device_ms(self, fn, reps: int, only: tuple = ()) -> float:
+    def device_ms(self, fn, reps: int, only: tuple = (),
+                  launches: int = 0) -> float:
         """Device time per call of ``fn``'s own kernels (torch.profiler,
         the flush's fill kernel left out; with ``only``, just the kernels
         whose names hold one of its strings), over ``reps`` calls timed as
         :meth:`ms` times them.  A profile that recorded no device time is
-        taken once more; 0.0 if that one is empty too."""
+        taken once more; 0.0 if that one is empty too.  With
+        ``launches``, the kernels ``only`` names that one call launches:
+        a profile that recorded another number of them (the profiler can
+        lose kernels in a long process) is taken again, three times at
+        most, and NaN is returned if none was whole."""
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
         fn()
         torch.cuda.synchronize()
-        for _ in range(2):
+        for _ in range(3 if launches else 2):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
                     self.flush.zero_()
                     fn()
                 torch.cuda.synchronize()
-            us = 0.0
+            us, seen = 0.0, 0
             for ev in prof.key_averages():
                 if "FillFunctor" in ev.key or (
                         only and not any(k in ev.key for k in only)):
@@ -444,7 +482,12 @@ class Timer:
                 t = getattr(ev, "self_device_time_total", None)
                 us += t if t is not None else getattr(
                     ev, "self_cuda_time_total", 0.0)
-            if us > 0:
+                seen += ev.count
+            if launches:
+                if seen == launches * reps:
+                    break
+                us = math.nan
+            elif us > 0:
                 break
         return us / 1e3 / reps
 
@@ -2278,6 +2321,25 @@ K5_CALL = {"pairwise_gram_partial": 1, "select_weights": 1,
            "fused_coordinate": 1, "fused_aggregate": 3}
 
 
+def attn_calls(cfg) -> int:
+    """Decode-attention launches of one decode step or verify block: one
+    per attention layer, two for an ``xattn`` layer, none for Mamba."""
+    slots = [cfg.slot(i) for i in range(cfg.n_layers)]
+    return sum((s != "mamba") + (s == "xattn") for s in slots)
+
+
+def call_launches(per_call: dict, kind: str, k: int = 1,
+                  attn: int = 0) -> dict:
+    """Every counter's expected value for one call of ``kind``: an
+    admission launches ``per_call``; a decode step that and ``attn``
+    decode attentions; a verify block ``k`` times ``per_call`` and
+    ``attn``."""
+    want = per_step(per_call, k if kind == "verify" else 1)
+    if kind != "admit":
+        want["decode_attention"] = attn
+    return want
+
+
 def serve_spec(rt, **kw):
     return rt["AggSpec"](f=SERVE_F, gar=SERVE_GAR, distance_backend="fused",
                          **kw)
@@ -2345,13 +2407,14 @@ class Probe:
 
         return call
 
-    def check(self, per_call: dict, what: str, k: int = 1) -> None:
+    def check(self, per_call: dict, what: str, k: int = 1,
+              attn: int = 0) -> None:
         """Each admission and decode step launches ``per_call``, each
-        verify block ``k`` times that; no aggregation selects the
-        poisoned replica."""
+        verify block ``k`` times that, and each decode step and verify
+        block ``attn`` decode attentions besides; no aggregation selects
+        the poisoned replica."""
         for kind, calls in self.calls.items():
-            times = k if kind == "verify" else 1
-            want = per_step(per_call, times)
+            want = call_launches(per_call, kind, k, attn)
             for i, c in enumerate(calls):
                 expect_launches(c["launches"], want, f"{what} {kind} {i}")
                 expect(c["byz"] == 0.0, f"{what} {kind} {i}: the poisoned "
@@ -2479,15 +2542,18 @@ def phase_serve_full(torch, np, rt, ops, timer, smi):
     rt["build"].reset_launches()
     run_a, probe_a, secs_a, _ = serve_run(torch, rt, cfg, params, reqs, spec)
     totals = dict(rt["build"].LAUNCHES)
-    probe_a.check(K5_CALL, "9a")
+    attn = attn_calls(cfg)
+    probe_a.check(K5_CALL, "9a", attn=attn)
     n_dec, n_adm = len(probe_a.calls["decode"]), len(probe_a.calls["admit"])
     expect(n_adm == len(reqs), f"9a: {n_adm} admissions")
-    expect_launches(totals, per_step(K5_CALL, n_dec + n_adm), "9a run")
+    expect_launches(totals, dict(per_step(K5_CALL, n_dec + n_adm),
+                                 decode_attention=n_dec * attn), "9a run")
     expect(all(len(run_a[r]) == m for r, _, m in reqs),
            "9a: a stream has the wrong length")
     print(f"  ok  9a {n_dec} decode steps and {n_adm} admissions: each "
-          f"exactly K1 1, select 1, K4 1 (K5 counter 3), K2 / K3 0; the "
-          f"poisoned replica never selected; totals {totals}", flush=True)
+          f"exactly K1 1, select 1, K4 1 (K5 counter 3), K2 / K3 0, and "
+          f"each decode step {attn} decode attentions; the poisoned replica "
+          f"never selected; totals {totals}", flush=True)
 
     # run B: the repeat, with the first decode step's stack held to the
     # xla backend and one later step profiled (outside run A)
@@ -2535,7 +2601,7 @@ def phase_serve_full(torch, np, rt, ops, timer, smi):
     expect(pushed == len(probe_c.calls["decode"]),
            f"9a: telemetry pushed {pushed} rows for "
            f"{len(probe_c.calls['decode'])} aggregations")
-    probe_c.check(K5_CALL, "9a telemetry")
+    probe_c.check(K5_CALL, "9a telemetry", attn=attn)
     print(f"  ok  9a request 0 alone == in the batch; telemetry on == off "
           f"bit for bit, {pushed} rows pushed == decode aggregations",
           flush=True)
@@ -2607,12 +2673,13 @@ def phase_serve_speculative(torch, np, rt, smi):
     reqs = serve_requests(np, cfg.vocab_size, 4, 11, (32, 64), (16, 24))
     per_token, probe_p, secs_p, _ = serve_run(torch, rt, cfg, params, reqs,
                                               serve_spec(rt), cache_len=512)
-    probe_p.check(K5_CALL, "9b per-token")
+    attn = attn_calls(cfg)
+    probe_p.check(K5_CALL, "9b per-token", attn=attn)
     k1, probe_1, _, _ = serve_run(torch, rt, cfg, params, reqs,
                                   serve_spec(rt, speculative_k=1),
                                   cache_len=512)
     expect(k1 == per_token, "9b: k = 1 differs from the per-token engine")
-    probe_1.check(K5_CALL, "9b k = 1", k=1)
+    probe_1.check(K5_CALL, "9b k = 1", k=1, attn=attn)
     print(f"  ok  9b k = 1 == the per-token engine bit for bit "
           f"({sum(len(v) for v in k1.values())} tokens)", flush=True)
 
@@ -2644,7 +2711,7 @@ def phase_serve_speculative(torch, np, rt, smi):
                        max_steps=400)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    probe.check(K5_CALL, f"9b k = {SPEC_K}", k=SPEC_K)
+    probe.check(K5_CALL, f"9b k = {SPEC_K}", k=SPEC_K, attn=attn)
     tel = eng.telemetry()
     agree = []
     for rid, _, m in reqs:
@@ -2697,8 +2764,9 @@ def phase_serve_reduced(torch, np, rt):
             pos = np.full((2,), 8 + t, np.int32)
             (agg, cache, _, _), counts = counted(
                 torch, rt["build"], lambda: step(params, cache, token, pos))
-            expect_launches(counts, per_step(K5_CALL),
-                            f"9c {arch} decode {t}")
+            expect_launches(counts, call_launches(
+                K5_CALL, "decode", attn=attn_calls(cfg)),
+                f"9c {arch} decode {t}")
             expect(bool(torch.isfinite(agg).all()),
                    f"9c {arch}: a non-finite aggregate")
             token = torch.argmax(agg, dim=-1).to(torch.int32)[:, None]
@@ -2749,24 +2817,30 @@ def hold_streams(rt, got: dict, want: dict, what: str) -> int:
         log=lambda line: print(f"  {what}: {line}", flush=True))
 
 
-def hold_first_step(run: dict, single: dict, what: str) -> str:
+def hold_first_step(run: dict, single: dict, what: str) -> tuple:
     """A sharded run's first decode step: the gathered stack against the
     single-device run's, and ``aggregate_logits`` on one device on that
     stack (under the backend the mesh resolves) giving the step's
     selection and aggregate bit for bit and its scores at 1e-4.
 
     The honest replicas' rows are held at 1e-4 of their largest entry.
-    Each poisoned replica's row (the last ``SERVE_F``, which every
-    aggregation discards) is held at 1e-4 of its own largest entry, or
-    within how far one device's own row moves when that replica runs
-    alone rather than under the ensemble's ``vmap`` (``spread``: the same
-    function in another summation order), whichever is larger: a replica
-    whose weights are sign-flipped and scaled by 10 has attention scores
-    100 times the honest ones, and its logits follow rounding that far.
-    The second witness (``witness``): each poisoned row this rank holds
-    lies no farther from the same replica's step in float64 on its own
-    cache than that bound, so the split forward rounds no worse than one
-    device does.  Returns the errors as a line."""
+    The poisoned replicas' rows (the last ``SERVE_F``, which every
+    aggregation discards) are held on one set of inputs: the
+    single-device run's first decode step (its token, positions and
+    that replica's cache), which this rank's path also runs
+    (``on_shared``).  A replica whose weights are sign-flipped and
+    scaled by 10 has attention scores 100 times the honest ones, so its
+    row follows rounding far more than theirs, and the two runs' caches
+    (each written by its own prefill) part by rounding too: on those
+    they would be held against two different exact steps.  On the
+    shared inputs, the rank's row and one device's each lie within
+    ``POISONED_TOL`` of their largest entry from the same step in
+    float64 (so within twice that of each other).  Printed besides: the
+    two rows' distance, the rows of the two runs' own stacks, each
+    run's row against float64 on its own cache, and how far the float64
+    steps on the two caches part.
+    Returns the errors as a line and the poisoned rows this rank held
+    on the shared inputs."""
     got, want = run["stack"].double(), single["stack"].double()
     honest = want.shape[0] - SERVE_F
     err = float((got[:honest] - want[:honest]).abs().max())
@@ -2775,44 +2849,55 @@ def hold_first_step(run: dict, single: dict, what: str) -> str:
            f"gathered stack are {rel:.3e} of their largest entry off one "
            f"device's")
     line = [f"honest rows {rel:.2e} of their largest entry"]
-    expect([i for i, _ in single["spread"]] == list(
-        range(honest, want.shape[0])), f"{what}: spread {single['spread']}")
-    for i, spread in single["spread"]:
+    one64 = dict(single["witness"])
+    expect(sorted(one64) == list(range(honest, want.shape[0])),
+           f"{what}: one device's float64 witness {single['witness']}")
+    held = []
+    for i, sh in run["on_shared"]:
         own = float(want[i].abs().max())
-        e = float((got[i] - want[i]).abs().max())
-        expect(e <= max(FP32_TOL * own, spread), f"{what}: the poisoned "
-               f"replica {i}'s row is {e / own:.3e} of its largest entry "
-               f"off one device's; one device's own row moves "
-               f"{spread / own:.3e} of it in another summation order")
-        line.append(f"poisoned row {i} {e / own:.2e} of its own (one "
-                    f"device's rounding spread {spread / own:.2e})")
-        one64 = dict(single["witness"])[i]
-        for j, w in run["witness"]:
-            if j != i:
-                continue
-            expect(w <= max(FP32_TOL * own, spread), f"{what}: the "
-                   f"poisoned replica {i}'s row is {w / own:.3e} of its "
-                   f"largest entry off float64 on its own cache; one "
-                   f"device's row {one64 / own:.3e}, its rounding spread "
-                   f"{spread / own:.3e}")
-            line.append(f"off float64 on its own cache {w / own:.2e} (one "
-                        f"device's {one64 / own:.2e})")
+        one = one64[i] / own
+        off = sh["off64"] / own
+        e = float((sh["row"].double() - want[i]).abs().max()) / own
+        for name, x in (("one device's row", one),
+                        ("this rank's row", off)):
+            expect(x <= POISONED_TOL, f"{what}: the poisoned replica "
+                   f"{i}: {name} is {x:.3e} of its largest entry off the "
+                   f"step in float64 on one device's inputs")
+        stacks = float((got[i] - want[i]).abs().max()) / own
+        w = dict(run["witness"])[i] / own
+        line.append(f"poisoned row {i} on one device's inputs {e:.2e} of "
+                    f"its own off one device's, {off:.2e} off float64 "
+                    f"(one device's {one:.2e}); on the runs' own caches "
+                    f"{stacks:.2e} off one device's, {w:.2e} off float64 "
+                    f"on its own, the float64 steps on the two caches "
+                    f"{sh['caches64'] / own:.2e} apart")
+        held.append(i)
     expect(run["on_stack"], f"{what}: the step's aggregate or selection "
            f"differs from aggregate_logits on one device on the same stack")
     expect(run["on_stack_scores"] <= FP32_TOL, f"{what}: the step's scores "
            f"are {run['on_stack_scores']:.3e} of their largest off one "
            f"device's on the same stack")
-    return ", ".join(line)
+    return ", ".join(line), held
 
 
-def check_serve_calls(run: dict, per_call: dict, what: str,
-                      k: int = 1) -> None:
-    """Each admission and decode step launches ``per_call``, each verify
-    block ``k`` times that; the poisoned replica has weight 0 in every
-    aggregation; the run's counters (from 0) are the calls' sum."""
+def held_poisoned(held: list, single: dict, what: str) -> None:
+    """Every poisoned row was held on the shared inputs by some rank."""
+    rows = sorted(dict(single["witness"]))
+    expect(sorted(set(held)) == rows, f"{what}: the poisoned rows {rows} "
+           f"were held on one device's inputs by ranks holding {held}")
+
+
+def check_serve_calls(run: dict, per_call: dict, what: str, k: int = 1,
+                      attn: int = 0) -> None:
+    """Each call launches what :func:`call_launches` gives; the poisoned
+    replica has weight 0 in every aggregation; the run's counters (from
+    0) are the calls' sum and the draft's ``k - 1`` decode steps per
+    verify block, outside the calls."""
     total = {name: 0 for name in REPLACES}
+    total["decode_attention"] = (k - 1) * attn * len(
+        run["calls"].get("verify", ()))
     for kind, calls in run["calls"].items():
-        want = per_step(per_call, k if kind == "verify" else 1)
+        want = call_launches(per_call, kind, k, attn)
         for i, c in enumerate(calls):
             expect_launches(c["launches"], want, f"{what} {kind} {i}")
             expect(c["byz"] == 0.0, f"{what} {kind} {i}: the poisoned "
@@ -2921,8 +3006,11 @@ def phase_shard_serve(torch, np, rt, smi):
     """9d and 9e: ``ServingEngine(mesh=)`` on gloo ranks sharing the card
     (``tests/torch_serve_mesh_check.py``'s rank functions), against the
     single-device engine on the same ensemble in a process of its own."""
+    import dataclasses
     sm = rt["serve_mesh_check"]
     set_d, set_e = shard_serve_settings(np, rt)
+    attn_d = attn_calls(dataclasses.replace(rt["get_config"](LLM_ARCH),
+                                            n_layers=LLM_LAYERS))
     torch.cuda.empty_cache()
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
@@ -2935,28 +3023,35 @@ def phase_shard_serve(torch, np, rt, smi):
                                           dict(set_e, single=True)],),
         device="cuda", backend="gloo", timeout=600)[0]
     t_single = time.perf_counter() - t0
+    sd = single_d["token"]
 
     # 9d: gemma3-1b at full width, on a (2, 1) mesh (K5 on every rank's
     # gathered stack), then a (1, 2) mesh of the same ranks (K1 on every
-    # rank's vocabulary slice)
+    # rank's vocabulary slice); each rank's poisoned rows also on the
+    # single-device run's first decode step's inputs
     t0 = time.perf_counter()
+    shared = dict(set_d, shared=sd["inputs"])
     res, res_m = zip(*rt["run_on_mesh"](
         sm.serve_settings, SHARD_SERVE_FULL,
-        args=([dict(set_d, time_k5=True),
-               dict(set_d, shape=SHARD_SERVE_MODEL, time_k1=True)],),
+        args=([dict(shared, time_k5=True),
+               dict(shared, shape=SHARD_SERVE_MODEL, time_k1=True)],),
         device="cuda", backend="gloo", timeout=600))
     t_d = time.perf_counter() - t0
     n_tok = sum(m for _, _, m in set_d["reqs"])
-    sd = single_d["token"]
+    lines, held = [], []
     for r in res:
         what = f"9d rank {r['coords']}"
         run = r["token"]
-        check_serve_calls(run, K5_CALL, what)
+        check_serve_calls(run, K5_CALL, what, attn=attn_d)
         expect(r["n_local"] == SHARD_SERVE_N // SHARD_SERVE_FULL[0],
                f"{what} holds {r['n_local']} replicas")
-        rel = hold_first_step(run, sd, what)
+        line, rows = hold_first_step(run, sd, what)
+        lines.append(f"rank {r['coords']['data']}: {line}")
+        held += rows
         expect(run["streams"] == res[0]["token"]["streams"],
                f"{what}: streams differ from rank 0's")
+    held_poisoned(held, sd, "9d")
+    rel = "; ".join(lines)
     parted = hold_streams(rt, res[0]["token"], sd, "9d")
     run0 = res[0]["token"]
     print(f"  ok  9d {LLM_ARCH} x {LLM_LAYERS} layers, {SHARD_SERVE_N} "
@@ -2998,11 +3093,12 @@ def phase_shard_serve(torch, np, rt, smi):
     for r in res_m:
         what = f"9d model axis rank {r['coords']}"
         run = r["token"]
-        check_serve_calls(run, K1_CALL, what)
+        check_serve_calls(run, K1_CALL, what, attn=attn_d)
         expect(r["n_local"] == SHARD_SERVE_N,
                f"{what} holds {r['n_local']} replicas")
         check_share(r, what)
-        rel = hold_first_step(run, sd, what)
+        rel, rows = hold_first_step(run, sd, what)
+        held_poisoned(rows, sd, what)
         expect(run["streams"] == res_m[0]["token"]["streams"],
                f"{what}: streams differ from rank 0's")
     parted = hold_streams(rt, res_m[0]["token"], sd, "9d model axis")
@@ -3048,19 +3144,22 @@ def phase_shard_serve(torch, np, rt, smi):
     # 9e: the model axis on a (2, 2) mesh, verify, telemetry (F4)
     t0 = time.perf_counter()
     res = rt["run_on_mesh"](sm.serve_rank, SHARD_SERVE_REDUCED,
-                            args=(set_e,), device="cuda", backend="gloo",
-                            timeout=600)
+                            args=(dict(set_e, shared=single_e["token"][
+                                "inputs"]),), device="cuda",
+                            backend="gloo", timeout=600)
     t_e = time.perf_counter() - t0
+    held = []
     for r in res:
         what = f"9e rank {r['coords']}"
         check_share(r, what)
         for name in set_e["runs"]:
             run = r[name]
             check_serve_calls(run, K1_CALL, f"{what} {name}",
-                              k=sm.RUNS["spec"]["speculative_k"])
+                              k=sm.RUNS["spec"]["speculative_k"],
+                              attn=attn_calls(rt["get_reduced"](MESH_ARCH)))
             expect(run["streams"] == res[0][name]["streams"],
                    f"{what} {name}: streams differ from rank 0's")
-        hold_first_step(r["token"], single_e["token"], what)
+        held += hold_first_step(r["token"], single_e["token"], what)[1]
         expect(r["telemetry"]["streams"] == r["token"]["streams"],
                f"{what}: telemetry=True changed the streams")
         tel = r["telemetry"]["telemetry"]
@@ -3072,6 +3171,7 @@ def phase_shard_serve(torch, np, rt, smi):
         expect(sk["rows"] == tel["pushed"] and sk["differ"] == 0,
                f"{what}: {sk['differ']} of {sk['rows']} telemetry rows "
                f"differ from tree_diagnostics on one device")
+    held_poisoned(held, single_e["token"], "9e")
     parts = {name: hold_streams(rt, res[0][name], single_e[name],
                                 f"9e {name}")
              for name in set_e["runs"]}
@@ -3664,8 +3764,9 @@ def phase_launch_hold(torch, np, rt, mesh: dict, serve: dict, smi: str):
     sspec = rt["AggSpec"](f=SERVE_F, gar="bulyan-krum",
                           distance_backend="fused")
     pos = np.zeros((SERVE_SLOTS,), np.int32)
-    for shape, want in ((SHARD_SERVE_FULL, K5_CALL),
-                        (SHARD_SERVE_MODEL, K1_CALL)):
+    for shape, per_call in ((SHARD_SERVE_FULL, K5_CALL),
+                            (SHARD_SERVE_MODEL, K1_CALL)):
+        want = call_launches(per_call, "decode", attn=attn_calls(cfg))
         for rank, got in enumerate(serve["decode_calls"][shape]):
             rm = dr.RecordingMesh(shape, rank=rank)
             expect(rm.coords == got["coords"], f"12b: rank {rank} at "
@@ -3795,6 +3896,102 @@ def phase_grouped_gemm(torch, rt, timer, smi) -> dict:
            f"13 grouped GEMM forward {rows['forward']['ms']:.4f} ms, not "
            f"faster than the loop's {rows['forward']['plain_ms']:.4f}")
     return {"rows": rows, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the decode attention over the serving cache
+# ---------------------------------------------------------------------------
+
+#: the serve-chat cell's decode step: replicas, periods, slots, cache
+#: positions, KV heads (= query heads) and head dim
+ATTN_R, ATTN_P, ATTN_B, ATTN_L, ATTN_H, ATTN_D = 7, 4, 12, 2048, 20, 128
+#: the slots' lengths: a piece's and a tile's edges and the mix's median
+ATTN_LENGTHS = (1, 127, 128, 129, 1020, 2047, 2048, 1, 2048, 255, 1190,
+                1500)
+#: the kernel against the plain path, over the plain path's largest
+#: entry: both sum up to 2,048 fp32 products per entry, in other orders
+ATTN_TOL = 1e-5
+
+
+def phase_decode_attention(torch, rt, timer, smi) -> dict:
+    """14: the kernel at the serve-chat cell's shapes against the plain
+    path, its launches, times and bound.  Returns ``{"row", "launches"}``."""
+    import torch.nn.functional as F
+    build = rt["build"]
+    from repro_torch.models.attention import _cached_attention
+    from repro_torch.models.attention import decode_attention
+    r, b, length, h, d = ATTN_R, ATTN_B, ATTN_L, ATTN_H, ATTN_D
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    k = torch.randn(r, ATTN_P, b, length, h, d, device="cuda", generator=gen)
+    v = torch.randn(r, ATTN_P, b, length, h, d, device="cuda", generator=gen)
+    q = torch.randn(r, b, 1, h, d, device="cuda", generator=gen)
+    valid = torch.tensor(ATTN_LENGTHS, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(length, device="cuda")[None, :]
+            < valid[:, None])[:, None, :]
+    period = ATTN_P // 2
+
+    def kern():
+        return torch.func.vmap(lambda qq, kk, vv: decode_attention(
+            qq, kk[period], vv[period], valid))(q, k, v)
+
+    def plain():
+        return torch.func.vmap(lambda qq, kk, vv: _cached_attention(
+            qq, kk[period], vv[period], mask))(q, k, v)
+
+    got, counts = counted(torch, build, kern)
+    want_launches = dict.fromkeys(build.LAUNCHES, 0)
+    want_launches["decode_attention"] = 1
+    expect_launches(counts, want_launches, "14 decode attention")
+    want = plain()
+    err, rel, scale = scaled_err(got, want)
+    expect(rel <= ATTN_TOL, f"14 decode attention: {rel:.3e} of "
+           f"{scale:.3e}")
+    # the library yardstick on a dense (rows, H, L, D) copy of the view
+    ks, vs = (t[:, period].reshape(r * b, length, h, d).transpose(1, 2)
+              .contiguous() for t in (k, v))
+    qs = q.reshape(r * b, 1, h, d).transpose(1, 2).contiguous()
+    smask = mask.repeat(r, 1, 1)[:, None]
+
+    def library():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=smask)
+
+    lib = library().transpose(1, 2).reshape(r, b, 1, h, d)
+    lib_err, lib_rel, _ = scaled_err(lib, want)
+    attended = r * h * int(valid.sum())
+    nbytes = 4 * (2 * attended * d + 2 * r * b * h * d)
+    row = dict(ms=timer.ms(kern, 20),
+               # at L = 2,048 the length splits into 8 pieces: each call
+               # launches the kernel and the combine
+               device_ms=timer.device_ms(kern, 10,
+                                         only=("decode_attention",),
+                                         launches=2),
+               plain_ms=timer.ms(plain, 5),
+               plain_device_ms=timer.device_ms(plain, 3),
+               library_ms=timer.ms(library, 10),
+               library_device_ms=timer.device_ms(library, 5),
+               max_abs_err=err, bound_by="bytes",
+               bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3)
+    share = 100 * row["bound_ms"] / row["device_ms"]
+    print(f"  ok  14 decode attention: {r} replicas x {b} slots of a "
+          f"period view of ({r}, {ATTN_P}, {b}, {length}, {h}, {d}) fp32, "
+          f"lengths {list(ATTN_LENGTHS)}: {err:.3e} off the plain path "
+          f"({rel:.2e} of {scale:.4e}); SDPA {lib_rel:.2e}; launches "
+          f"{counts['decode_attention']}; kernel {row['ms']:.4f} ms (device "
+          f"{row['device_ms']:.4f})  plain {row['plain_ms']:.4f} ms (device "
+          f"{row['plain_device_ms']:.4f})  SDPA {row['library_ms']:.4f} ms "
+          f"(device {row['library_device_ms']:.4f})  bound "
+          f"{row['bound_ms']:.4f} ms ({nbytes:,} B); {share:.1f}% of it "
+          f"({smi})", flush=True)
+    log = build._BUILD / "decode_attention.log"
+    if log.exists():
+        print_ptxas(log)
+    expect(row["device_ms"] < row["plain_device_ms"],
+           f"14 decode attention: device {row['device_ms']:.4f} ms, not "
+           f"under the plain path's {row['plain_device_ms']:.4f}")
+    expect(55.0 <= share <= 100.0, f"14 decode attention at {share:.1f}% "
+           f"of its bound, not within 55-100% (over 100%: the profile "
+           f"missed kernels)")
+    return {"row": row, "launches": counts["decode_attention"]}
 
 
 def print_ptxas(log: pathlib.Path) -> None:
@@ -4030,6 +4227,10 @@ def main() -> int:
           flush=True)
     gmm = phase_grouped_gemm(torch, rt, timer, smi)
 
+    print("== phase 14: the decode attention (the serving cache)",
+          flush=True)
+    attn = phase_decode_attention(torch, rt, timer, smi)
+
     kernels = []
     for model, kind in (("mlp", "mnist"), ("cnn", "cifar")):
         for name, r in timings[model].items():
@@ -4099,6 +4300,15 @@ def main() -> int:
             "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    row = attn["row"]
+    kernels.append({
+        "name": "decode_attention@qwen1.5-4b-l4.serve-chat", "route": "cuda",
+        "source": SOURCES["decode_attention"],
+        "replaces": REPLACES["decode_attention"],
+        "launches": attn["launches"], "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"], "device_ms": row["device_ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(f"  the script took {time.perf_counter() - t_start:.1f} s "
           f"({smi})", flush=True)
     print(smi, flush=True)

@@ -5,13 +5,15 @@ seeds.
 layers, 8 replicas, the last sign-flipped and scaled by 10) runs on one
 device and on a (1, 2) mesh of two gloo ranks sharing the card, where
 each rank decodes on the ``model`` halves of all 8 replicas (the split
-forward), through ``tests/torch_serve_mesh_check.py``'s probe.  For each
-seed the script prints, per poisoned row of the first decode step's
-gathered stack and over that row's largest |entry|: the split row
-against one device's, each of the two against the same replica's step
-in float64 on its own cache, and one device's rounding spread (the
-replica alone against the ensemble's ``vmap``); then whether
-``chip_smoke.hold_first_step`` holds.  Needs one card:
+forward), through ``tests/torch_serve_mesh_check.py``'s probe, each rank
+also on the one-device run's first-step inputs (token, positions, the
+poisoned replica's cache).  For each seed the script prints whether
+``chip_smoke.hold_first_step`` holds and its line: per poisoned row and
+over that row's largest |entry|, on the shared inputs the split row
+against one device's and each of the two against the same step in
+float64; on the runs' own caches the split row against one device's,
+against float64 on its own cache, and how far the float64 steps on the
+two caches part.  Needs one card:
 
     python3 scripts/torch_serve_witness.py --seeds 0 1
 """
@@ -56,24 +58,13 @@ def main() -> int:
             [dict(setting, single=True)],), device="cuda", backend="gloo",
             timeout=600)[0][0]["token"]
         ranks = run_on_mesh(sm.serve_settings, cs.SHARD_SERVE_FULL, args=(
-            [dict(setting, shape=cs.SHARD_SERVE_MODEL)],), device="cuda",
+            [dict(setting, shape=cs.SHARD_SERVE_MODEL,
+                  shared=single["inputs"])],), device="cuda",
             backend="gloo", timeout=600)
-        want = single["stack"].double()
-        spread, one64 = dict(single["spread"]), dict(single["witness"])
         for (r,) in ranks:
             run = r["token"]
-            got = run["stack"].double()
-            for i, w in run["witness"]:
-                own = float(want[i].abs().max())
-                e = float((got[i] - want[i]).abs().max())
-                print(f"seed {seed} rank {r['coords']} poisoned row {i}: "
-                      f"largest |entry| {own:.6g}; split vs one device "
-                      f"{e / own:.4e}; split vs float64 on its own cache "
-                      f"{w / own:.4e}; one device vs float64 on its own "
-                      f"cache {one64[i] / own:.4e}; one device's rounding "
-                      f"spread {spread[i] / own:.4e}", flush=True)
             try:
-                line = cs.hold_first_step(run, single, f"seed {seed}")
+                line, _ = cs.hold_first_step(run, single, f"seed {seed}")
                 print(f"seed {seed} rank {r['coords']}: hold_first_step "
                       f"holds: {line}", flush=True)
             except cs.CheckFailed as exc:

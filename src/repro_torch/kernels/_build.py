@@ -14,7 +14,8 @@ kernel), so a run can show that it went through the kernels.  K5
 (``fused_aggregate``) launches nothing of its own; its count is the sum
 of the K1, selection and K4 launches it made.  ``grouped_gemm`` counts
 the grouped GEMM's forward, dX and dW launches (the dropless expert
-layer).
+layer); ``decode_attention`` one per call of the cached attention's op
+(its kernel, and with a split length the combining kernel after it).
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = (pathlib.Path(__file__).resolve().parents[3] / "build"
           / "repro_torch_kernels")
 _SOURCES = ("pairwise_gram", "fused_agg", "bulyan_select", "coord_stats",
-            "grouped_gemm")
+            "grouped_gemm", "decode_attention")
 _ARCH = "arch=compute_90a,code=sm_90a"
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -66,13 +67,18 @@ _SIGNATURES = {
                          _VP, _I, _I, _VP],
         "gmm_dw_f32": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP],
     },
+    "decode_attention": {
+        "decode_attention_run": [_I, _VP, _LL, _LL, _VP, _LL, _LL, _VP, _LL,
+                                 _LL, _VP, _VP, _VP] + [_I] * 11 + [_VP],
+    },
 }
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"pairwise_gram_partial": 0,
                             "select_weights": 0, "fused_coordinate": 0,
                             "fused_aggregate": 0, "bulyan_select": 0,
-                            "coord_stats": 0, "grouped_gemm": 0}
+                            "coord_stats": 0, "grouped_gemm": 0,
+                            "decode_attention": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -9,7 +9,10 @@ scores of bf16 inputs are products taken in fp32, as the reference's
 ``preferred_element_type=float32``.  The serving half,
 :func:`decode_attention` (one new token against a KV cache) and
 :func:`verify_attention` (a causal block of new tokens, the
-speculative-verify path), are plain products too.
+speculative-verify path), go through one op,
+``repro_torch.kernels.decode_attention``: on the card a hand-written
+kernel that reads the cache where it lies, up to each query's valid
+length; on the CPU :func:`_cached_attention`'s plain products.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention import cached_attention
 
 __all__ = ["NEG_INF", "attention", "attention_blockwise",
            "attention_naive", "decode_attention", "rope",
@@ -234,7 +239,8 @@ def _cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor,
                       mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Queries ``(B, Sq, Hq, D)`` against ``(B, L, Hkv, D)`` caches;
-    ``mask`` is ``(B, Sq, L)`` (True = attendable) or ``None``."""
+    ``mask`` is ``(B, Sq, L)`` (True = attendable) or ``None``: the plain
+    path of the cached attention's op, which a CPU tensor takes."""
     b, sq, hq, d = q.shape
     scores = _gqa_scores(q, k_cache) / _sqrt_d(d, q.device)
     if mask is not None:
@@ -262,12 +268,8 @@ def decode_attention(q1: torch.Tensor, k_cache: torch.Tensor,
       ``(B, 1, Hq, D)`` in ``v_cache``'s dtype; scores in fp32, scaled by
       ``sqrt(D)`` rounded to fp32, masked entries at ``NEG_INF``.
     """
-    mask = None
-    if valid_len is not None:
-        s = k_cache.shape[1]
-        mask = (torch.arange(s, device=q1.device)[None, :]
-                < valid_len[:, None])[:, None, :]              # (B, 1, S)
-    return _cached_attention(q1, k_cache, v_cache, mask)
+    return cached_attention(q1, k_cache, v_cache,
+                            None if valid_len is None else valid_len[:, None])
 
 
 # -- verify (a block of new tokens against a cache, causal) --------------------
@@ -280,8 +282,8 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Each query ``j`` attends to the first ``q_valid[:, j]`` cache
     entries (the block's own keys must already be in the cache).  At
     ``Sq = 1`` with ``q_valid = valid_len[:, None]`` this is
-    :func:`decode_attention` bit for bit: both run the same products on
-    the same mask.
+    :func:`decode_attention` bit for bit: both run the same op on the
+    same lengths.
 
     Args:
       q: ``(B, Sq, Hq, D)`` queries of a block of ``Sq`` new tokens.
@@ -293,9 +295,4 @@ def verify_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Returns:
       ``(B, Sq, Hq, D)`` in ``v_cache``'s dtype.
     """
-    mask = None
-    if q_valid is not None:
-        s = k_cache.shape[1]
-        mask = (torch.arange(s, device=q.device)[None, None, :]
-                < q_valid[:, :, None])                         # (B, Sq, S)
-    return _cached_attention(q, k_cache, v_cache, mask)
+    return cached_attention(q, k_cache, v_cache, q_valid)

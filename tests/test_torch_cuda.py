@@ -180,7 +180,8 @@ def test_launches_are_counted_once_per_kernel(card):
     assert _build.LAUNCHES == {"pairwise_gram_partial": 1,
                                "select_weights": 1, "fused_coordinate": 1,
                                "fused_aggregate": 3, "bulyan_select": 0,
-                               "coord_stats": 0, "grouped_gemm": 0}
+                               "coord_stats": 0, "grouped_gemm": 0,
+                               "decode_attention": 0}
     _build.reset_launches()
     fa.fused_aggregate(x, 2, mode="cwmed")
     assert _build.LAUNCHES["fused_coordinate"] == 1
@@ -679,7 +680,8 @@ def test_robust_serve_step_on_the_card_matches_the_cpu(card):
     poisoned, ``bulyan-krum`` over ``fused``) on the card against the
     same steps on the CPU (the kernels' plain versions there): each
     call launches exactly K1, the selection and K4 once (K5's counter
-    reads its 3 parts), never selects the poisoned replica, and gives
+    reads its 3 parts), each decode step one decode attention per layer
+    besides, never selects the poisoned replica, and gives
     the CPU's aggregate at 1e-4 of its largest entry off Bulyan's window
     ties (tied or windowed differently on the two devices' logits
     stacks, fewer than 1 in 1,000 coordinates)."""
@@ -707,7 +709,9 @@ def test_robust_serve_step_on_the_card_matches_the_cpu(card):
     tokens = np.asarray([[1, 2, 3, 4, 5], [6, 7, 8, 9, 10]], np.int32)
     want = {"pairwise_gram_partial": 1, "select_weights": 1,
             "fused_coordinate": 1, "fused_aggregate": 3, "bulyan_select": 0,
-            "coord_stats": 0, "grouped_gemm": 0}
+            "coord_stats": 0, "grouped_gemm": 0, "decode_attention": 0}
+    # a decode step also runs one decode attention per layer
+    want_step = dict(want, decode_attention=cfg.n_layers)
     aggs, caches = {}, {}
     for dev in params:
         _build.reset_launches()
@@ -729,7 +733,7 @@ def test_robust_serve_step_on_the_card_matches_the_cpu(card):
                 params[dev], caches[dev], token.to(dev), pos)
             assert float(res.selected[-1]) == 0.0
             if dev != "cpu":
-                assert _build.LAUNCHES == want
+                assert _build.LAUNCHES == want_step
         off = window_ties([stacks["cpu"]], [stacks[card].cpu()], f)[0]
         assert int(off.sum()) * 1000 < off.numel(), int(off.sum())
         got = aggs[card].cpu().reshape(-1)[~off]
@@ -801,9 +805,10 @@ def test_two_gloo_ranks_serve_through_k5(card):
     """``ServingEngine(mesh=)`` on a (2, 1) mesh of gloo ranks sharing the
     card (reduced llama3.2-3b, 8 replicas, 4 per rank, the last
     sign-flipped, ``bulyan-krum`` over ``fused``): every admission and
-    decode step of a rank launches exactly one K5, the poisoned replica
-    is never selected, the first decode step's gathered stack matches the
-    single-device engine's and the rank's aggregate equals
+    decode step of a rank launches exactly one K5 (a decode step also one
+    decode attention per layer for the rank's replicas), the poisoned
+    replica is never selected, the first decode step's gathered stack
+    matches the single-device engine's and the rank's aggregate equals
     ``aggregate_logits`` on one device on it bit for bit, and the streams
     equal the single-device engine's."""
     import numpy as np
@@ -824,13 +829,14 @@ def test_two_gloo_ranks_serve_through_k5(card):
     k5 = {k: 0 for k in _build.LAUNCHES}
     k5.update(pairwise_gram_partial=1, select_weights=1, fused_coordinate=1,
               fused_aggregate=3)
+    per_call = {"admit": k5, "decode": dict(k5, decode_attention=2)}
     for r in res:
         run = r["token"]
         assert r["n_local"] == 4
         for kind in ("admit", "decode"):
             assert run["calls"][kind]
             for c in run["calls"][kind]:
-                assert c["launches"] == k5 and c["byz"] == 0.0
+                assert c["launches"] == per_call[kind] and c["byz"] == 0.0
         assert run["on_stack"]
         got, want = run["stack"].double(), single["stack"].double()
         assert float((got - want).abs().max()) <= 1e-4 * float(
@@ -898,3 +904,177 @@ def test_grouped_gemm_vmap_grad_on_the_card(card):
     gx, gw = grad(x, w, offs)
     cx, cw = grad(x.to(card), w.to(card), offs.to(card))
     assert _rel(cx.cpu(), gx) < 1e-5 and _rel(cw.cpu(), gw) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the decode attention over the serving cache
+# ---------------------------------------------------------------------------
+
+def _attn_inputs(card, n, b, length, hkv, g, sq, d, dtype, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, device=card, generator=gen).to(dtype)
+    return (draw(n, b, sq, hkv * g, d), draw(n, b, length, hkv, d),
+            draw(n, b, length, hkv, d))
+
+
+def _attn_plain(q, k, v, lens):
+    """The op's plain path (the ``einsum`` body), run on the card."""
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    return decode_attention_plain(q, k, v, lens)
+
+
+#: serve-chat's slot lengths at the edges of a piece and a tile
+CELL_LENGTHS = [1, 127, 128, 129, 1020, 2047, 2048, 1, 2048, 255, 1190,
+                1500]
+
+
+def test_decode_attention_at_the_serving_cells_shapes(card):
+    """84 rows (7 replicas x 12 slots), 20 heads of 128, 2,048
+    positions, lengths at the pieces' and tiles' edges: within 1e-5 of
+    the plain path's largest entry, one launch counted."""
+    q, k, v = _attn_inputs(card, 7, 12, 2048, 20, 1, 1, 128, torch.float32,
+                           0)
+    lens = torch.tensor(CELL_LENGTHS, dtype=torch.int32,
+                        device=card).repeat(7, 1)[:, :, None]
+    _build.reset_launches()
+    got = torch.ops.repro_torch.decode_attention(q, k, v, lens)
+    assert _build.LAUNCHES == dict(dict.fromkeys(_build.LAUNCHES, 0),
+                                   decode_attention=1)
+    assert _rel(got, _attn_plain(q, k, v, lens)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 256])
+def test_decode_attention_matches_plain(card, d, g, dtype, tol):
+    """Every head dim, GQA groups of 1, 4 and 8, and blocks of 1 to 5
+    queries each attending to its own causal prefix (as a verify block),
+    over lengths that take one piece and several."""
+    for sq in range(1, 6):
+        for length in (61, 700):
+            q, k, v = _attn_inputs(card, 2, 3, length, 2, g, sq, d, dtype,
+                                   sq)
+            gen = torch.Generator(device=card).manual_seed(sq)
+            first = torch.randint(1, length - sq + 2, (2, 3, 1), device=card,
+                                  generator=gen, dtype=torch.int32)
+            lens = first + torch.arange(sq, device=card, dtype=torch.int32)
+            got = torch.ops.repro_torch.decode_attention(q, k, v, lens)
+            assert got.dtype == dtype
+            assert _rel(got, _attn_plain(q, k, v, lens)) <= tol, (sq, length)
+
+
+def test_decode_attention_identical_rows_give_identical_bits(card):
+    """Rows holding the same queries, cache and lengths agree bit for bit
+    within one launch (the serving cell's six honest replicas), with the
+    length split into pieces and not."""
+    for length in (200, 2048):
+        q, k, v = _attn_inputs(card, 1, 6, length, 4, 2, 2, 64,
+                               torch.float32, 3)
+        q, k, v = (t[:, :1].expand(7, 6, *t.shape[2:]).contiguous()
+                   for t in (q, k, v))
+        lens = torch.tensor([[[length // 3, length // 3 + 1]]], device=card,
+                            dtype=torch.int32).expand(7, 6, 2).contiguous()
+        got = torch.ops.repro_torch.decode_attention(q, k, v, lens)
+        assert all(torch.equal(got[i, j], got[0, 0]) for i in range(7)
+                   for j in range(6))
+
+
+def test_decode_attention_vmap_on_a_period_view_is_the_replica_loop(card):
+    """The robust steps' form: ``vmap`` over the replicas of a period
+    view of a replica-stacked cache leaf ``(R, P, B, L, H, D)`` (read in
+    place), one launch for every replica, against one call per replica
+    bit for bit and the plain path at 1e-5."""
+    from repro_torch.models.attention import decode_attention
+    r, p, b, length, hkv, d = 3, 2, 4, 1000, 4, 64
+    gen = torch.Generator(device=card).manual_seed(8)
+    k = torch.randn(r, p, b, length, hkv, d, device=card, generator=gen)
+    v = torch.randn(r, p, b, length, hkv, d, device=card, generator=gen)
+    q = torch.randn(r, b, 1, 2 * hkv, d, device=card, generator=gen)
+    valid = torch.tensor([1, 300, 999, 1000], device=card)
+    _build.reset_launches()
+    got = torch.func.vmap(lambda qq, kk, vv: decode_attention(
+        qq, kk[1], vv[1], valid))(q, k, v)
+    assert _build.LAUNCHES["decode_attention"] == 1
+    loop = torch.stack([decode_attention(q[i], k[i, 1], v[i, 1], valid)
+                        for i in range(r)])
+    assert torch.equal(got, loop)
+    lens = valid[None, :, None].expand(r, b, 1)
+    assert _rel(got, _attn_plain(q, k[:, 1], v[:, 1], lens)) <= 1e-5
+
+
+def test_decode_step_at_the_serving_cells_shapes_copies_no_cache(card):
+    """One ensemble decode step at serve-chat's shapes (qwen1.5-4b's
+    widths at 4 layers, 7 replicas, 12 slots of 2,048 positions): each
+    layer's decode attention grows the allocated memory by under 64 MiB
+    over what it is handed (one layer's keys alone are 1.76 GB), and the
+    whole step by less than one layer's keys."""
+    import dataclasses
+
+    from repro_torch.agg import AggSpec
+    from repro_torch.configs import get_config
+    from repro_torch.dist.serve_robust import (make_robust_serve_step,
+                                               replicate_cache,
+                                               replicate_params)
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import init_cache, init_model
+    cfg = dataclasses.replace(get_config("qwen1_5_4b"), n_layers=4)
+    params = replicate_params(init_model(0, cfg, device=card), 7)
+    cache = replicate_cache(init_cache(cfg, 12, 2048, device=card), 7)
+    step = make_robust_serve_step(cfg, AggSpec(f=1, gar="bulyan-krum",
+                                               distance_backend="fused"))
+    token = torch.zeros((12, 1), dtype=torch.int32, device=card)
+    pos = torch.tensor([l - 1 for l in CELL_LENGTHS], dtype=torch.int32,
+                       device=card)
+    growth, op, depth = [], da._decode_attention, [0]
+
+    def measured(*args):
+        # the vmap rule calls the op again, on the folded replicas
+        depth[0] += 1
+        if depth[0] > 1:
+            out = op(*args)
+        else:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = op(*args)
+            torch.cuda.synchronize()
+            growth.append(torch.cuda.max_memory_allocated() - before)
+        depth[0] -= 1
+        return out
+
+    step(params, cache, token, pos)  # warm
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    da._decode_attention = measured
+    try:
+        step(params, cache, token, pos)
+    finally:
+        da._decode_attention = op
+    torch.cuda.reset_peak_memory_stats()
+    step(params, cache, token, pos)
+    torch.cuda.synchronize()
+    whole = torch.cuda.max_memory_allocated() - resident
+    layer_keys = cache["periods"]["s0"]["k"][:, 0].numel() * 4
+    assert len(growth) == 4
+    assert max(growth) < 64 * 2 ** 20, growth
+    assert whole < layer_keys, (whole, layer_keys)
+
+
+def test_decode_attention_refuses_what_the_kernel_does_not_take(card):
+    q, k, v = _attn_inputs(card, 1, 2, 64, 2, 2, 1, 64, torch.float32, 9)
+    lens = torch.full((1, 2, 1), 64, dtype=torch.int32, device=card)
+    op = torch.ops.repro_torch.decode_attention
+    with pytest.raises(TypeError):
+        op(q.half(), k.half(), v.half(), lens)
+    with pytest.raises(TypeError):
+        op(q, k.to(torch.bfloat16), v, lens)
+    with pytest.raises(ValueError):  # head dim 48
+        op(q[..., :48].contiguous(), k[..., :48].contiguous(),
+           v[..., :48].contiguous(), lens)
+    with pytest.raises(ValueError):  # (L, Hkv, D) not dense
+        op(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, lens)
+    with pytest.raises(ValueError):
+        op(q, k, v, lens[..., :0])

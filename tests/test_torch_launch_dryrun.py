@@ -168,7 +168,7 @@ def test_dryrun_cli_writes_the_artifact(tmp_path):
                                        serve_replicas=8,
                                        serve_speculative_k=4,
                                        distance_backend="fused"),
-     {"pairwise_gram_partial": 4}),
+     {"pairwise_gram_partial": 4, "decode_attention": 2}),
     ("mixtral-8x22b", "train_4k", dict(moe_impl="scatter",
                                        gar="reputation-krum", rep_lr=0.5,
                                        telemetry=True), {}),
@@ -292,7 +292,8 @@ def test_recording_mesh_equals_gloo_tensor_parallel_decode_step(worlds):
     replicas' model slices, the split forward): the trace of the same
     rank records the same collectives per kind; it launches one K1 on
     the rank's vocabulary slice (``fused`` is ``pallas`` under the model
-    axis) and gathers no parameter leaf."""
+    axis) and one decode attention per layer (whole on every rank, all
+    the rank's replicas in one launch), and gathers no parameter leaf."""
     cfg = get_reduced(cases.ARCH)
     for rank, got in enumerate(worlds[0]):
         mesh = dryrun.RecordingMesh((2, 2), rank=rank)
@@ -304,7 +305,8 @@ def test_recording_mesh_equals_gloo_tensor_parallel_decode_step(worlds):
         assert pred["by_kind"] == got["decode"], rank
         assert got["decode"]["all_reduce"]["calls"] > 1
         assert pred["launches"]["pairwise_gram_partial"] == 1
-        assert sum(pred["launches"].values()) == 1
+        assert pred["launches"]["decode_attention"] == cfg.n_layers
+        assert sum(pred["launches"].values()) == 1 + cfg.n_layers
         assert not any(g["leaf"] for g in pred["gathers"])
 
 
@@ -473,7 +475,7 @@ def test_kernel_wrappers_meta_branch():
     assert _build.LAUNCHES == {
         "pairwise_gram_partial": 2, "select_weights": 2,
         "fused_coordinate": 2, "fused_aggregate": 3, "bulyan_select": 1,
-        "coord_stats": 1, "grouped_gemm": 0}
+        "coord_stats": 1, "grouped_gemm": 0, "decode_attention": 0}
     _build.reset_launches()
     with pytest.raises(TypeError):
         pairwise_gram.pairwise_gram_partial(x.to(torch.float16))

@@ -13,8 +13,9 @@ rank reads the kernels' launch counters (per process), the host clock,
 its collectives (``Mesh.comm``) and the poisoned replica's selection
 weight; it records the top-2 gap of every emitted token's aggregated
 logits, so a caller can tell a near-tie from a fault where two runs'
-streams part.  Nothing here launches a kernel inside a counted window
-except the engine's own steps.
+streams part.  A run's launch totals are the engine's alone: the
+probe counts the launches of its own decode steps (the captured stack,
+the float64 witnesses) apart, and the run's totals leave them out.
 """
 from __future__ import annotations
 
@@ -97,26 +98,30 @@ class _Probe:
     the emitted tokens' top-2 gaps.  ``capture`` keeps the first decode
     step's gathered stack (computed before the call, from the same
     replicas, outside its window) and the aggregate, selection and
-    scores the step returned, and on one device ``spread``, how far the
-    poisoned replicas' rows of that stack move when each replica runs
-    alone (:meth:`_spread`), and ``witness``, how far they lie from the
-    same replica's step in float64 on the same cache (:meth:`_witness`);
-    ``record`` keeps every decode step's
+    scores the step returned, ``witness``, how far the poisoned
+    replicas' rows of that stack lie from the same replica's step in
+    float64 on the same cache (:meth:`_exact`), and on one device
+    ``inputs``, the step's token, positions and the poisoned replicas'
+    caches (on the CPU); given such ``shared`` inputs of another run,
+    ``on_shared`` holds the poisoned replicas this rank holds on them
+    (:meth:`_on_shared`).  ``record`` keeps every decode step's
     stack, aggregate and the telemetry row it pushed.  ``extra_s`` is
     the host time the probe spent outside the steps' windows, which a
-    run's wall time leaves out."""
+    run's wall time leaves out, and ``own`` the kernel launches of the
+    probe's own decode steps, which a run's launch totals leave out."""
 
     def __init__(self, eng, mesh, n: int, f: int, capture: bool,
-                 record: bool = False):
+                 record: bool = False, shared: Optional[dict] = None):
         self.eng, self.mesh, self.n, self.f = eng, mesh, n, f
         self.calls = {"admit": [], "decode": [], "verify": []}
         self.gaps: Dict[int, List] = {}
-        self.capture, self.record = capture, record
+        self.capture, self.record, self.shared = capture, record, shared
         self.records: List = []
-        self.stack = self.first = None
-        self.spread, self.witness = [], []
+        self.stack = self.first = self.inputs = None
+        self.witness, self.on_shared = [], []
         self.pending = None
         self.extra_s = 0.0
+        self.own = {k: 0 for k in _build.LAUNCHES}
         for kind, attr in (("admit", "_ens_prefill"), ("decode", "_decode"),
                            ("verify", "_verify")):
             if hasattr(eng, attr):
@@ -145,45 +150,71 @@ class _Probe:
                 else sr.gathered_logits(logits, self.n, eng.mesh,
                                         logits_split(cfg, eng.shard)))
 
-    def _spread(self, args, stack):
-        """``[(row, max |difference|)]`` for the poisoned replicas' rows of
-        a one-device decode step: each replica alone against the
-        ensemble's ``vmap``, the same function in another summation
-        order (how far rounding alone moves the row)."""
-        cfg = self.eng.cfg
-        p, c, tok, pos = args[:4]
-        out = []
-        for i in range(self.n - self.f, self.n):
-            alone = decode_step(tree_map(lambda x: x[i], p), cfg,
-                                tree_map(lambda x: x[i], c), tok, pos)[0]
-            out.append((i, float((alone[:, 0].to(torch.float32)
-                                  - stack[i]).abs().max())))
-        return out
-
-    def _witness(self, args, stack):
-        """``[(row, max |difference|)]`` for the poisoned replicas' rows of
-        the stack that this rank holds: each against the same replica's
-        decode step in float64 on the same cache, through the same path
-        (the split forward under a ``model`` axis, whose ranks hold the
-        same replicas), i.e. how far the row lies from the exact one."""
-        eng, cfg = self.eng, self.eng.cfg
-        p, c, tok, pos = args[:4]
+    def _held(self, p) -> List[tuple]:
+        """``[(row, local index)]`` of the poisoned replicas this rank
+        holds."""
+        eng = self.eng
         lo = 0 if eng.mesh is None else replica_rows(self.n, eng.mesh)[
             0].start
         held = tree_leaves(p)[0].shape[0]
+        return [(i, i - lo) for i in range(self.n - self.f, self.n)
+                if 0 <= i - lo < held]
+
+    def _row(self, p, cache, tok, pos, dtype) -> torch.Tensor:
+        """One replica's decode step in ``dtype`` on ``cache`` through
+        this rank's path (the split forward under a ``model`` axis,
+        whose ranks hold the same replicas), gathered: ``(B, V)`` on the
+        CPU.  A float64 step runs on the CPU: the card's decode attention
+        takes float32 and bfloat16."""
+        eng = self.eng
+        exact = dtype == torch.float64
+        dev = torch.device("cpu") if exact else eng.device
+        p, cache = (tree_map(lambda x: x.to(dev, dtype if exact else None),
+                             t) for t in (p, cache))
+        e = decode_step(p, eng.cfg, cache, tok.to(dev), pos,
+                        shard=eng.shard)[0][:, 0]
+        if eng.mesh is not None and logits_split(eng.cfg, eng.shard):
+            e = eng.mesh.all_gather(e, "model", e.dim() - 1)
+        return e.to(dtype).cpu()
+
+    def _exact(self, args) -> Dict[int, torch.Tensor]:
+        """The poisoned replicas this rank holds: each one's decode step
+        in float64 on this run's own cache (:meth:`_row`)."""
+        p, c, tok, pos = args[:4]
+        return {i: self._row(tree_map(lambda x: x[j], p),
+                             tree_map(lambda x: x[j], c), tok, pos,
+                             torch.float64)
+                for i, j in self._held(p)}
+
+    def _on_shared(self, args, exact: Dict[int, torch.Tensor]):
+        """``[(row, {...})]`` for the poisoned replicas this rank holds, on
+        ``shared``'s inputs (another run's token, positions and that
+        replica's cache) in place of this run's: ``"row"``, the step in
+        float32 through this rank's path (``(B, V)`` on the CPU);
+        ``"off64"``, its largest distance from the same step in float64
+        on the same inputs; ``"caches64"``, how far that float64 step
+        lies from ``exact``'s, the step on this run's own cache (how far
+        the two runs' caches part, seen through the step)."""
+        p = args[0]
+        sh = self.shared
         out = []
-        for i in range(self.n - self.f, self.n):
-            if not 0 <= i - lo < held:
-                continue
-            p64, c64 = (tree_map(lambda x: x[i - lo].double(), t)
-                        for t in (p, c))
-            e = decode_step(p64, cfg, c64, tok, pos, shard=eng.shard)[0][
-                :, 0]
-            if eng.mesh is not None and logits_split(cfg, eng.shard):
-                e = eng.mesh.all_gather(e, "model", e.dim() - 1)
-            out.append((i, float((stack[i].double() - e).abs().max())))
-            del p64, c64, e
+        for i, j in self._held(p):
+            pi = tree_map(lambda x: x[j], p)
+            row, e = (self._row(pi, sh["rows"][i], sh["tok"], sh["pos"], dt)
+                      for dt in (torch.float32, torch.float64))
+            out.append((i, {"row": row, "off64": float(
+                (row.double() - e).abs().max()), "caches64": float(
+                    (exact[i] - e).abs().max())}))
         return out
+
+    def _inputs(self, args):
+        """The step's token and positions and the poisoned replicas'
+        caches, on the CPU (what :meth:`_on_shared` of another run
+        takes)."""
+        p, c, tok, pos = args[:4]
+        return {"tok": tok.to("cpu", copy=True), "pos": np.array(pos),
+                "rows": {i: tree_map(lambda x: x[j].to("cpu", copy=True), c)
+                         for i, j in self._held(p)}}
 
     def _wrap(self, fn, kind):
         dev = self.eng.device
@@ -193,12 +224,20 @@ class _Probe:
             stack = None
             if kind == "decode" and (self.record or (
                     self.capture and self.stack is None)):
+                counts = dict(_build.LAUNCHES)
                 stack = self._stack_of(args)
                 if self.capture and self.stack is None:
                     self.stack = stack
-                    self.witness = self._witness(args, stack)
+                    exact = self._exact(args)
+                    self.witness = [(i, float((stack[i].double().cpu()
+                                               - e).abs().max()))
+                                    for i, e in exact.items()]
                     if self.eng.mesh is None:
-                        self.spread = self._spread(args, stack)
+                        self.inputs = self._inputs(args)
+                    if self.shared is not None:
+                        self.on_shared = self._on_shared(args, exact)
+                for k in self.own:
+                    self.own[k] += _build.LAUNCHES[k] - counts[k]
             _sync(dev)
             self.extra_s += time.perf_counter() - t_probe
             before = dict(_build.LAUNCHES)
@@ -368,13 +407,15 @@ def serve_rank(mesh, setting: Dict[str, Any]) -> Dict[str, Any]:
     ``n``, ``f``, ``seed``, ``reqs`` (``(rid, prompt, max_new)``),
     ``slots``, ``cache_len``, ``runs`` (names of :data:`RUNS`),
     ``single``, ``shape`` (a mesh of that shape over the same ranks in
-    place of ``mesh``), ``time_k5`` (time K5 on the first run's captured
-    stack, each rank with the card alone), ``time_k1`` (time K1 on the
-    rank's vocabulary slice of it).
+    place of ``mesh``), ``shared`` (a single-device run's ``"inputs"``,
+    for the first run's probe: :meth:`_Probe._on_shared`), ``time_k5``
+    (time K5 on the first run's captured stack, each rank with the card
+    alone), ``time_k1`` (time K1 on the rank's vocabulary slice of it).
 
     Returns:
       Per run ``{"streams", "gaps", "calls", "wall_s" (the run less the
-      probe's own host time), "launches" (the run's counts from 0),
+      probe's own host time), "launches" (the run's counts from 0, the
+      probe's own decode steps left out), "probe_launches" (theirs),
       "comm", "telemetry", "peak_gib"}`` (the peak from the end of the
       build); the first run also ``"stack"`` and ``"agg"``, the first
       decode step's gathered stack and aggregate, ``"on_stack"``: whether
@@ -382,8 +423,9 @@ def serve_rank(mesh, setting: Dict[str, Any]) -> Dict[str, Any]:
       the engine's mesh resolves, gives the step's selection and its
       aggregate bit for bit, and ``"on_stack_scores"``: its scores'
       largest difference over their largest |entry|, ``"witness"`` (the
-      probe's: the poisoned rows this rank holds against float64), and
-      on one device ``"spread"`` (the probe's); the ``telemetry``
+      probe's: the poisoned rows this rank holds against float64),
+      ``"on_shared"`` (given ``shared``) and on one device ``"inputs"``
+      (the probe's); the ``telemetry``
       run also ``"sketch"``, :func:`_sketch_check` of its rows.  Besides:
       ``"n_local"``, ``"share_bytes"`` (the first engine's parameters),
       ``"whole_bytes"`` (the whole ensemble the rank built first),
@@ -446,7 +488,9 @@ def serve_rank(mesh, setting: Dict[str, Any]) -> Dict[str, Any]:
     for name in setting["runs"]:
         eng = engines.pop(name)
         probe = _Probe(eng, mesh, n, f, capture=name == first,
-                       record=name == "telemetry")
+                       record=name == "telemetry",
+                       shared=setting.get("shared") if name == first
+                       else None)
         reqs = [Request(rid, np.asarray(p, np.int32), m)
                 for rid, p, m in setting["reqs"]]
         mesh.reset_comm()
@@ -458,7 +502,9 @@ def serve_rank(mesh, setting: Dict[str, Any]) -> Dict[str, Any]:
         _sync(dev)
         run = {"streams": streams, "gaps": probe.gaps, "calls": probe.calls,
                "wall_s": time.perf_counter() - t0 - probe.extra_s,
-               "launches": dict(_build.LAUNCHES),
+               "launches": {k: _build.LAUNCHES[k] - probe.own[k]
+                            for k in probe.own},
+               "probe_launches": dict(probe.own),
                "comm": comm_snapshot(mesh.comm),
                "telemetry": eng.telemetry()}
         run["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
@@ -473,7 +519,8 @@ def serve_rank(mesh, setting: Dict[str, Any]) -> Dict[str, Any]:
             on_stack, res = sr.aggregate_logits(stack, f, base.gar,
                                                 distance_backend=backend)[:2]
             run.update(stack=stack.cpu(), agg=agg.cpu(),
-                       spread=probe.spread, witness=probe.witness,
+                       witness=probe.witness, on_shared=probe.on_shared,
+                       inputs=probe.inputs,
                        on_stack=bool(torch.equal(on_stack, agg)
                                      and torch.equal(res.selected, sel)),
                        on_stack_scores=float(
